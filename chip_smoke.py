@@ -10,37 +10,59 @@ Phases (each one fails the run with a nonzero exit):
              nvcc per source, started together) and load them
   kernels    each kernel against its plain PyTorch version on the card, at
              the main path's shapes (fp_mul/fp_sq at 1024 and 1000 rows,
-             the Miller steps at 65 and 1025 pairs), on seeded lazy limbs,
-             on every operand's limbs at the maximum 2^12, and on a mix of
-             the two: torch.equal on int32; times
+             the Miller steps at 65 and 1025 pairs, the tower kernels at
+             the final exponentiation's one row, fp6_mul also at 2 rows,
+             fp12_mul also at the halving product's 64 and 32 rows, and
+             all three at a ragged 1025), on seeded lazy limbs, on every
+             operand's limbs at the maximum 2^12, and on a mix of the two:
+             torch.equal on int32; strided and broadcast tower operands
+             too; times
   parity     a 4-set batch through the five stages on the card and on the
-             CPU (plain versions): every stage output bit-identical
+             CPU (plain versions): every stage output bit-identical; the
+             same for _stage_agg_prep and for the pubkey rows that
+             _marshal_batch gathers from a device table
   gossip     64 sets x 1 pubkey over 64 messages (the beacon processor's
              gossip batch) through api.verify_signature_sets: the per-set
              path; honest -> True, one wrong-message signature -> False
   aggregate  1024 sets x 2 pubkeys over 32 messages (tiled from 32 signed
              sets): the message-aggregated path; honest -> True, one
              forged set -> False
+  table      a PubkeyTable of 2^20 validators on the card (the keys of the
+             two batches tiled with filler keys), and both batches again
+             with every key tagged by a validator index spread over the
+             whole table, so _marshal_batch gathers the pubkey rows on the
+             card: honest -> True, forged -> False, the same verdicts and
+             the same pk tensor as the host-packed route, and the gossip
+             batch once more with pad_to=256
+  aggverify  api.aggregate_verify over the gossip batch's 64 pubkeys and 64
+             distinct messages (65 pairs): honest -> True, one message
+             swapped -> False
 
 Kernel launch counts are reset just before each honest main-path verify
-and read just after it; every kernel must have launched, and the Miller
-steps exactly 63 and 5 times per Miller loop. The script prints the card
-(nvidia-smi name and power limit), per-stage ms and sets/s, one JSON line
-with every kernel's numbers, and as its last line
-{"ok": true, "device": {...}}. Without a CUDA device it exits nonzero and
-prints no result.
+and read just after it; every kernel must have launched, and each
+pairing kernel exactly as often as the code implies (`expected_launches`:
+per verify 63 doubling and 5 addition steps, 316 cyclotomic squares, one
+fp6_mul, and 35 fp12_mul plus one per halving of the Miller product).
+The script prints the card (nvidia-smi name and power limit), per-stage
+ms and sets/s, one JSON line with every kernel's numbers, and as its last
+line {"ok": true, "device": {...}}. Without a CUDA device it exits
+nonzero and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import time
 
-ALL_PHASES = ("build", "kernels", "parity", "gossip", "aggregate")
+ALL_PHASES = (
+    "build", "kernels", "parity", "gossip", "aggregate", "table", "aggverify",
+)
 
 # H100 SXM peaks. HBM: 3.35 TB/s (NVIDIA data sheet). int32: the CUDA C++
 # Programming Guide's arithmetic-throughput table gives compute capability
@@ -59,6 +81,10 @@ KERNEL_META = {
         "lighthouse_tpu_torch/csrc/miller_kernels.cu", TPU_KERNELS + ":735"),
     "miller_add_step": (
         "lighthouse_tpu_torch/csrc/miller_kernels.cu", TPU_KERNELS + ":754"),
+    "fp6_mul": ("lighthouse_tpu_torch/csrc/tower_kernels.cu", TPU_KERNELS + ":708"),
+    "fp12_mul": ("lighthouse_tpu_torch/csrc/tower_kernels.cu", TPU_KERNELS + ":718"),
+    "fp12_cyclotomic_sq": (
+        "lighthouse_tpu_torch/csrc/tower_kernels.cu", TPU_KERNELS + ":728"),
 }
 
 
@@ -81,6 +107,7 @@ def _op_counts() -> dict:
 
     reduce = carry3(69) + fold(72) + fold(35)
     norm = 35 + carry3(35) + fold(38)
+    lincomb = 3 * 35 + carry3(35) + fold(38)  # a*ka + b*kb, normalized
     add1 = 35 + fold(35)
     mul_cols = 2 * 35 * 35
     sq_cols = 2 * 35 + 35 * 34 + 35
@@ -101,11 +128,16 @@ def _op_counts() -> dict:
     jac_madd = 4 * fp2_sq + 7 * fp2_mul + 4 * ms2 + 9 * a2
     dbl_step = 3 * fp2_sq + 4 * fp2_mul + 4 * ms2 + a2 + 2 * mulfp + jac_double
     add_step = fp2_sq + 6 * fp2_mul + 4 * a2 + 2 * mulfp + jac_madd
+    fp12_mul = 3 * fp6_mul + 15 * a2 + xi
+    cyclo_sq = 9 * fp2_sq + 12 * a2 + 4 * xi + 6 * 2 * lincomb
     return {
         "fp_mul": fp_mul,
         "fp_sq": fp_sq,
         "miller_dbl_step": dbl_step + fp12_sq + mul_by_line,
         "miller_add_step": add_step + mul_by_line,
+        "fp6_mul": fp6_mul,
+        "fp12_mul": fp12_mul,
+        "fp12_cyclotomic_sq": cyclo_sq,
     }
 
 
@@ -115,7 +147,41 @@ ROW_BYTES = {
     "fp_sq": 4 * W * 2,
     "miller_dbl_step": 4 * W * (12 + 6 + 1 + 1 + 12 + 6),
     "miller_add_step": 4 * W * (12 + 6 + 4 + 1 + 1 + 12 + 6),
+    "fp6_mul": 4 * W * (6 + 6 + 6),
+    "fp12_mul": 4 * W * (12 + 12 + 12),
+    "fp12_cyclotomic_sq": 4 * W * (12 + 12),
 }
+
+
+def expected_launches(TP, pairs: int) -> dict:
+    """Launches of the pairing kernels in one verify over `pairs` Miller
+    pairs, as gpu/pairing.py implies: a doubling step per post-leading bit
+    of |x| and an addition step per one-bit; the final exponentiation's
+    five x-powers (`_pow_x_abs`) square at every bit and multiply at every
+    one-bit, plus one cyclotomic square in the final product; fp12_mul
+    twice in the easy part, once per x-chain step, and three times in the
+    halving product of the five final factors (padded to 8); the Miller
+    stage's halving product takes ceil(log2(pairs)) more; fp6_mul once,
+    in fp12_inv's stacked product."""
+    bits, ones = len(TP.BIT_TABLE), sum(TP.BIT_TABLE)
+    return {
+        "miller_dbl_step": bits,
+        "miller_add_step": ones,
+        "fp12_cyclotomic_sq": 5 * bits + 1,
+        "fp12_mul": 2 + 5 * ones + 5 + (5 - 1).bit_length()
+        + (pairs - 1).bit_length(),
+        "fp6_mul": 1,
+    }
+
+
+def check_launches(label, counts, want):
+    """Every kernel launched on the path; the pairing kernels as often as
+    the code implies."""
+    for name, n in counts.items():
+        need(n > 0, f"{label}: kernel {name} never launched on the main path")
+    for name, n in want.items():
+        need(counts[name] == n, f"{label}: {counts[name]} {name} launches, "
+             f"want {n}")
 
 
 def bound(name: str, rows: int):
@@ -133,6 +199,35 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+def _unmangle(nested: str) -> str:
+    """The last identifier of a mangled nested name: the suffix that its
+    decimal length prefix announces."""
+    for i in range(len(nested)):
+        m = re.match(r"\d+", nested[i:])
+        if m and int(m.group()) == len(nested) - i - len(m.group()):
+            return nested[i + len(m.group()):]
+    return nested
+
+
+def ptxas_summary(report: str) -> list:
+    """One line per kernel (entry function) of an nvcc -Xptxas -v report:
+    registers and cumulative stack; plus the most spill bytes of any
+    function in the library."""
+    out, kernel, spills = [], None, 0
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+?_kernel)E", line)
+        if m:
+            kernel = _unmangle(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = max(spills, int(m.group(1)), int(m.group(2)))
+        if kernel and "Used" in line:
+            out.append(f"{kernel}: {line.split(':', 1)[1].strip()}")
+            kernel = None
+    out.append(f"most spill bytes of any function: {spills}")
+    return out
 
 
 def cuda_ms(torch, fn, reps: int, warm: int = 1) -> float:
@@ -184,10 +279,22 @@ def phase_kernels(torch, K, results):
         "fp_sq": [1024, 1000],
         "miller_dbl_step": [65, 1025],
         "miller_add_step": [65, 1025],
+        "fp6_mul": [1, 2, 1025],
+        "fp12_mul": [1, 64, 32, 1025],
+        "fp12_cyclotomic_sq": [1, 1025],
     }
+    tower_slots = {"fp6_mul": (3, 2), "fp12_mul": (2, 3, 2),
+                   "fp12_cyclotomic_sq": (2, 3, 2)}
 
     def inputs(name, rows, kind):
         first, rest = kind != "lazy", kind == "maximal"
+        if name in tower_slots:
+            shape = (rows,) + tower_slots[name] + (W,)
+            slots = math.prod(tower_slots[name])
+            a = lazy(rows, slots, first).reshape(shape)
+            if name == "fp12_cyclotomic_sq":
+                return (a,)
+            return (a, lazy(rows, slots, rest).reshape(shape))
         if name in ("fp_mul", "fp_sq"):
             a = lazy(rows, 1, first)[:, 0]
             return (a, lazy(rows, 1, rest)[:, 0]) if name == "fp_mul" else (a,)
@@ -203,6 +310,9 @@ def phase_kernels(torch, K, results):
         "fp_sq": (K.fp_sq, K.fp_sq_plain),
         "miller_dbl_step": (K.miller_dbl_step, K.miller_dbl_step_plain),
         "miller_add_step": (K.miller_add_step, K.miller_add_step_plain),
+        "fp6_mul": (K.fp6_mul, K.fp6_mul_plain),
+        "fp12_mul": (K.fp12_mul, K.fp12_mul_plain),
+        "fp12_cyclotomic_sq": (K.fp12_cyclotomic_sq, K.fp12_cyclotomic_sq_plain),
     }
     for name, sizes in cases.items():
         err = 0
@@ -219,9 +329,11 @@ def phase_kernels(torch, K, results):
                     err = max(err, int((g.long() - w.long()).abs().max()))
                     need(torch.equal(g, w), f"{name} rows={rows} {kind}: "
                          "kernel differs from its plain version")
-                if rows == sizes[0] and kind == "lazy" and name.startswith("miller"):
+                if rows == sizes[0] and kind == "lazy" and name not in (
+                        "fp_mul", "fp_sq"):
                     # and against the plain version on the CPU, same inputs
                     cpu = plain(*(x.cpu() for x in args))
+                    cpu = cpu if isinstance(cpu, tuple) else (cpu,)
                     for g, w in zip(got, cpu):
                         need(torch.equal(g.cpu(), w), f"{name}: card != CPU plain")
         timing = {}
@@ -244,6 +356,25 @@ def phase_kernels(torch, K, results):
                 f"bound {b_ms:.6f} ms ({b_by})")
         log(f"kernel {name}: equal to its plain version at rows {sizes} "
             f"on inputs {kinds}, max_abs_err {err}")
+    # the operand layouts the path hands the tower wrappers: fp12_prod's
+    # strided halves, fp12_inv's broadcast inverse, a lone row
+    f = lazy(65, 12, False).reshape(65, 2, 3, 2, W)
+    tower_calls = [
+        ("fp12_mul", K.fp12_mul, K.fp12_mul_plain, (f[0:64:2], f[1::2])),
+        ("fp12_mul", K.fp12_mul, K.fp12_mul_plain, (f[:3], f[3])),
+        ("fp6_mul", K.fp6_mul, K.fp6_mul_plain,
+         (f[:2, 0], f[2, 1].unsqueeze(0))),
+        ("fp12_cyclotomic_sq", K.fp12_cyclotomic_sq,
+         K.fp12_cyclotomic_sq_plain, (f[64],)),
+    ]
+    for name, kern, plain, args in tower_calls:
+        got, want = kern(*args), plain(*args)
+        need(got.shape == want.shape and torch.equal(got, want),
+             f"{name}: kernel differs from its plain version on operands "
+             f"{[tuple(a.shape) for a in args]}, strides "
+             f"{[a.stride() for a in args]}")
+    log("kernels fp6_mul, fp12_mul, fp12_cyclotomic_sq: equal to their plain "
+        "versions on strided, broadcast and unbatched operands")
 
 
 def _stage_timer(torch, times, outs=None):
@@ -285,6 +416,44 @@ def phase_parity(torch, api, B):
     need(bool(outs["cuda"]["verdict"]), "parity: honest 4-set batch rejected")
     log(f"parity: stages {sorted(outs['cpu'])} bit-identical card vs CPU; verdict True")
 
+    # aggregate_verify's own stage, and the pubkey rows gathered from a
+    # device table, card vs CPU
+    pk = torch.stack([torch.as_tensor(B._pk_limbs(s.pubkeys[0])) for s in sets])
+    sig = torch.as_tensor(B._sig_limbs(sets[0].signature))
+    real = torch.tensor([True, True, True, False])
+    prep = {dev: B._stage_agg_prep(pk.to(dev), sig.to(dev), real.to(dev))
+            for dev in ("cuda", "cpu")}
+    for g, w in zip(prep["cuda"], prep["cpu"]):
+        need(torch.equal(g.cpu(), w), "parity: _stage_agg_prep differs card vs CPU")
+    gathered = {}
+    for dev in ("cuda", "cpu"):
+        table = B.PubkeyTable(dev)
+        table.import_new_pubkeys([s.pubkeys[0] for s in reversed(sets)])
+        tagged = tag_sets(api, sets, table, lambda i, j, key: 3 - i)
+        gathered[dev] = B._marshal_batch(tagged, dev, seed=5).pk
+    need(torch.equal(gathered["cuda"].cpu(), gathered["cpu"]),
+         "parity: gathered pubkey rows differ card vs CPU")
+    need(torch.equal(gathered["cpu"], B._marshal_batch(sets, "cpu", seed=5).pk),
+         "parity: gathered pubkey rows differ from the host-packed ones")
+    log("parity: _stage_agg_prep outputs and the table-gathered pk rows "
+        "bit-identical card vs CPU (and equal to the host-packed pk)")
+
+
+def tag_sets(api, sets, table, index):
+    """The sets with every pubkey replaced by a copy tagged with `table`
+    and the validator index `index(set i, key j, key)`, as the chain's
+    validator pubkey cache tags its keys."""
+    out = []
+    for i, s in enumerate(sets):
+        keys = []
+        for j, key in enumerate(s.pubkeys):
+            tagged = api.PublicKey(key.point, subgroup_checked=True)
+            tagged.validator_index = index(i, j, key)
+            tagged.table = table
+            keys.append(tagged)
+        out.append(api.SignatureSet.multiple_pubkeys(s.signature, keys, s.message))
+    return out
+
 
 def _verify_timed(torch, B, sets, seed):
     times = {}
@@ -297,7 +466,8 @@ def _verify_timed(torch, B, sets, seed):
     return verdict, times, (t2 - t0), mb.grid_idx is not None
 
 
-def run_path(torch, K, B, api, label, sets, forged, launches, card, profile):
+def run_path(torch, K, TP, B, api, label, sets, forged, pairs, launches, card,
+             profile):
     """One batch through `api.verify_signature_sets`, the user's entry
     point: a warm-up verify, then the counted verify (launch counts reset
     just before it and read just after), then the forged batch; per-stage
@@ -309,12 +479,7 @@ def run_path(torch, K, B, api, label, sets, forged, launches, card, profile):
     secs = time.perf_counter() - t0
     counts = dict(K.LAUNCHES)
     need(ok, f"{label}: honest batch rejected")
-    for name, n in counts.items():
-        need(n > 0, f"{label}: kernel {name} never launched on the main path")
-    need(counts["miller_dbl_step"] == 63, f"{label}: {counts['miller_dbl_step']} "
-         "miller_dbl_step launches, want 63 per Miller loop")
-    need(counts["miller_add_step"] == 5, f"{label}: {counts['miller_add_step']} "
-         "miller_add_step launches, want 5 per Miller loop")
+    check_launches(label, counts, expected_launches(TP, pairs))
     for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
     staged_ok, times, staged_secs, aggregated = _verify_timed(torch, B, sets, seed=12)
@@ -328,10 +493,143 @@ def run_path(torch, K, B, api, label, sets, forged, launches, card, profile):
     bad = api.verify_signature_sets(forged, seed=13)
     need(not bad, f"{label}: forged batch accepted")
     log(f"{label}: forged False, {time.perf_counter() - t0:.3f} s")
-    out = dict(sets=len(sets), seconds=secs, stage_ms=times, aggregated=aggregated)
+    out = dict(sets=len(sets), seconds=secs, stage_ms=times, aggregated=aggregated,
+               launches=counts)
     if profile:
         out["profile"] = profile_verify(torch, B, sets, label)
     return out
+
+
+TABLE_ROWS = 1 << 20  # validators: the order of the mainnet registry
+
+
+def phase_table(torch, K, TP, B, api, batches, launches, card):
+    """A 2^20-row PubkeyTable on the card, filled by tiling the batches'
+    keys and filler keys; each batch again with its keys tagged by indices
+    spread over the whole table (row r holds base key r % len(base))."""
+    import numpy as np
+
+    base, pos = [], {}
+    for sets, _, _ in batches.values():
+        for s in sets:
+            for key in s.pubkeys:
+                xy = (key.point.x.n, key.point.y.n)
+                if xy not in pos:
+                    pos[xy] = len(base)
+                    base.append(key)
+    filler = 256 - len(base)
+    base += [api.SecretKey(900001 + i).public_key() for i in range(filler)]
+    nb = len(base)
+    t_start = time.perf_counter()
+    table = B.PubkeyTable("cuda")
+    table.import_new_pubkeys([base[r % nb] for r in range(TABLE_ROWS)])
+    t_imported = time.perf_counter()
+    dev_table = table.device_table()
+    torch.cuda.synchronize()
+    import_ms = (t_imported - t_start) * 1e3
+    upload_ms = (time.perf_counter() - t_imported) * 1e3
+    need(len(table) == TABLE_ROWS and dev_table.shape == (TABLE_ROWS, 3, W),
+         f"table: {len(table)} keys, device table {tuple(dev_table.shape)}")
+    log(f"table: {TABLE_ROWS} validators ({dev_table.numel() * 4 / 1e6:.1f} MB on "
+        f"the card) from {nb} distinct keys ({filler} filler): host import "
+        f"{import_ms:.1f} ms, upload {upload_ms:.1f} ms; card: {card}")
+
+    def spreader(sets):
+        """Indices for the batch's keys, each a row holding that key, in
+        even steps from the first rows of the table to its last."""
+        total = sum(len(s.pubkeys) for s in sets)
+        steps = iter(range(total))
+        q_max = TABLE_ROWS // nb - 1
+        return lambda i, j, key: pos[(key.point.x.n, key.point.y.n)] + nb * (
+            next(steps) * q_max // max(total - 1, 1))
+
+    out = {}
+    for label, (sets, forged, pairs) in batches.items():
+        label = "table-" + label
+        tagged = tag_sets(api, sets, table, spreader(sets))
+        tagged_forged = tag_sets(api, forged, table, spreader(forged))
+        idx = np.asarray([[k.validator_index for k in s.pubkeys] for s in tagged])
+        need(idx.min() < TABLE_ROWS // 16 and idx.max() > TABLE_ROWS * 15 // 16,
+             f"{label}: indices {idx.min()}..{idx.max()} do not span the table")
+        mb_t = B._marshal_batch(tagged, "cuda", seed=21)
+        mb_h = B._marshal_batch(sets, "cuda", seed=21)
+        need(torch.equal(mb_t.pk, mb_h.pk),
+             f"{label}: gathered pk differs from the host-packed pk")
+        idx_pack = B._pack_index_batch(tagged, *mb_t.pk.shape[:2])[0]
+        gather_ms = cuda_ms(torch, lambda: table.gather(idx_pack), reps=10)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        ok = api.verify_signature_sets(tagged, seed=21)
+        secs = time.perf_counter() - t0
+        counts = dict(K.LAUNCHES)
+        need(ok, f"{label}: honest batch rejected")
+        check_launches(label, counts, expected_launches(TP, pairs))
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        need(api.verify_signature_sets(sets, seed=21) == ok,
+             f"{label}: host-packed route disagrees")
+        t0 = time.perf_counter()
+        bad = api.verify_signature_sets(tagged_forged, seed=22)
+        bad_secs = time.perf_counter() - t0
+        need(not bad, f"{label}: forged batch accepted")
+        need(api.verify_signature_sets(forged, seed=22) == bad,
+             f"{label}: host-packed route disagrees on the forged batch")
+        log(f"{label}: honest True, {len(sets)} sets gathered by index from the "
+            f"{TABLE_ROWS}-row table, {secs:.3f} s, {len(sets) / secs:.2f} sets/s; "
+            f"forged False, {bad_secs:.3f} s; gather {gather_ms:.4f} ms; "
+            f"pk equal to the host-packed route, verdicts equal; launches {counts}")
+        out[label] = dict(sets=len(sets), seconds=secs, forged_seconds=bad_secs,
+                          gather_ms=gather_ms, launches=counts)
+        if label == "table-gossip":
+            mb = B._marshal_batch(tagged, "cuda", seed=23, pad_to=256)
+            need(mb.real.shape[0] == 256 and mb.grid_idx is None,
+                 f"{label}: pad_to=256 marshalled n_b {mb.real.shape[0]}")
+            t0 = time.perf_counter()
+            ok = bool(B.dispatch_verify_signature_sets(
+                tagged, seed=23, pad_to=256, device="cuda"))
+            need(ok, f"{label}: honest batch rejected with pad_to=256")
+            pad_secs = time.perf_counter() - t0
+            log(f"{label}: pad_to=256 (n_b 256, per-set shape) True, {pad_secs:.3f} s")
+            out[label]["pad_to_256_seconds"] = pad_secs
+    out["table"] = dict(rows=TABLE_ROWS, distinct_keys=nb,
+                        import_ms=import_ms, upload_ms=upload_ms)
+    return out
+
+
+def phase_aggverify(torch, K, TP, B, api, gossip, launches, card):
+    """api.aggregate_verify over the gossip batch's 64 pubkeys and 64
+    distinct messages under the sum of its signatures (65 pairs)."""
+    sets = gossip[0]
+    sig = api.AggregateSignature.aggregate([s.signature for s in sets]).to_signature()
+    pks = [s.pubkeys[0] for s in sets]
+    msgs = [s.message for s in sets]
+    need(api.aggregate_verify(sig, pks, msgs), "aggverify: warm-up rejected")
+    K.reset_launches()
+    t0 = time.perf_counter()
+    ok = api.aggregate_verify(sig, pks, msgs)
+    secs = time.perf_counter() - t0
+    counts = dict(K.LAUNCHES)
+    need(ok, "aggverify: honest aggregate rejected")
+    check_launches("aggverify", counts, expected_launches(TP, len(pks) + 1))
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    swapped = list(msgs)
+    swapped[9] = b"not the attested data"
+    t0 = time.perf_counter()
+    bad = api.aggregate_verify(sig, pks, swapped)
+    bad_secs = time.perf_counter() - t0
+    need(not bad, "aggverify: aggregate over a swapped message accepted")
+    times = {}
+    need(B.aggregate_verify(sig, pks, msgs, device="cuda",
+                            timer=_stage_timer(torch, times)),
+         "aggverify: staged (timed) verify rejected")
+    stages = " ".join(f"{k}={v:.1f}" for k, v in times.items())
+    log(f"aggverify: honest True, {len(pks)} pubkeys over {len(msgs)} messages, "
+        f"{secs:.3f} s; swapped message False, {bad_secs:.3f} s; launches "
+        f"{counts}; card: {card}")
+    log(f"aggverify: stage ms (synchronized): {stages}")
+    return dict(pubkeys=len(pks), seconds=secs, forged_seconds=bad_secs,
+                stage_ms=times, launches=counts)
 
 
 def profile_verify(torch, B, sets, label):
@@ -424,6 +722,7 @@ def main(argv=None) -> int:
     from lighthouse_tpu_torch.crypto.bls import api
     from lighthouse_tpu_torch.crypto.bls.backends import torch_cuda as B
     from lighthouse_tpu_torch.crypto.bls.gpu import kernels as K
+    from lighthouse_tpu_torch.crypto.bls.gpu import pairing as TP
 
     t_start = time.perf_counter()
     card = card_line()
@@ -434,31 +733,41 @@ def main(argv=None) -> int:
     info = K.build()  # phase build: always, every later phase needs it
     log(f"build: {info['seconds']:.1f} s, built {info['built']} into {info['dir']}")
     for name, rep in info["ptxas"].items():
-        for line in rep.splitlines():
-            if "Used" in line or "spill" in line or "stack" in line:
-                log(f"ptxas {name}: {line.strip()}")
+        for line in ptxas_summary(rep):
+            log(f"ptxas {name}: {line}")
 
     results, launches, paths = {}, {}, {}
     if "kernels" in phases:
         phase_kernels(torch, K, results)
     if "parity" in phases:
         phase_parity(torch, api, B)
-    if "gossip" in phases or "aggregate" in phases:
+    use_gossip = any(p in phases for p in ("gossip", "table", "aggverify"))
+    use_aggregate = any(p in phases for p in ("aggregate", "table"))
+    if use_gossip or use_aggregate:
         api.set_backend("torch_cuda")
-        if "gossip" in phases:
+        # (sets, forged, Miller pairs): the gossip batch takes the per-set
+        # path (64 + 1 pairs), the aggregate batch the message-aggregated
+        # one (32 messages + 1 pairs)
+        batches = {}
+        if use_gossip:
             t0 = time.perf_counter()
-            sets, forged = gossip_sets(api)
-            log(f"gossip: signed {len(sets)} sets in {time.perf_counter() - t0:.1f} s")
-            paths["gossip"] = run_path(
-                torch, K, B, api, "gossip", sets, forged, launches, card,
-                args.profile)
-        if "aggregate" in phases:
+            batches["gossip"] = gossip_sets(api) + (65,)
+            log(f"gossip: signed 64 sets in {time.perf_counter() - t0:.1f} s")
+        if use_aggregate:
             t0 = time.perf_counter()
-            sets, forged = aggregate_sets(api)
+            batches["aggregate"] = aggregate_sets(api) + (33,)
             log(f"aggregate: signed 32 sets in {time.perf_counter() - t0:.1f} s")
-            paths["aggregate"] = run_path(
-                torch, K, B, api, "aggregate", sets, forged, launches, card,
-                args.profile)
+        for label in ("gossip", "aggregate"):
+            if label in phases:
+                sets, forged, pairs = batches[label]
+                paths[label] = run_path(
+                    torch, K, TP, B, api, label, sets, forged, pairs, launches,
+                    card, args.profile)
+        if "table" in phases:
+            paths.update(phase_table(torch, K, TP, B, api, batches, launches, card))
+        if "aggverify" in phases:
+            paths["aggverify"] = phase_aggverify(
+                torch, K, TP, B, api, batches["gossip"], launches, card)
         need(all(launches.get(k, 0) > 0 for k in K.LAUNCHES),
              f"kernels not launched on the main path: {launches}")
         log(f"kernels {json.dumps(launches)}")

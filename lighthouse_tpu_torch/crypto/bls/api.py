@@ -1,13 +1,17 @@
 """Backend-pluggable BLS12-381 API (Ethereum proof-of-possession scheme).
 
 Port of lighthouse_tpu/crypto/bls/api.py for the PyTorch/CUDA package:
-`SecretKey`, `PublicKey`, `Signature`, `AggregateSignature`,
-`SignatureSet`, key_validate, and the batch entry point `verify_signature_sets()` (reference crypto/bls/src/lib.rs:99-140).
+`SecretKey`, `PublicKey`, `AggregatePublicKey`, `Signature`,
+`AggregateSignature`, `SignatureSet`, key_validate, the batch entry point
+`verify_signature_sets()` (reference crypto/bls/src/lib.rs:99-140) and
+`aggregate_verify()`.
 
 One backend so far: ``torch_cuda``, the GPU batch verifier
 (backends/torch_cuda.py). It runs on the card unless the caller passes
 ``device="cpu"`` (to `set_backend` or to `verify_signature_sets`), which
-runs every kernel's plain PyTorch version instead.
+runs every kernel's plain PyTorch version instead. Batches whose keys are
+all tagged with one device table (`validator_index`, `table`) gather
+their pubkey rows on the device by index.
 
 Keys and signatures carry their affine oracle points plus compressed bytes;
 group membership is enforced at `PublicKey` construction while signatures
@@ -21,7 +25,7 @@ from dataclasses import dataclass, field
 from . import curve_ref as C
 from .constants import R
 from .curve_ref import DeserializeError, Point
-from .fields_ref import Fp2
+from .fields_ref import Fp, Fp2
 from .hash_to_curve_ref import hash_to_g2
 
 PUBLIC_KEY_BYTES_LEN = 48
@@ -36,6 +40,10 @@ class BlsError(ValueError):
     pass
 
 
+def _g1_infinity() -> Point:
+    return Point(Fp.zero(), Fp.zero(), True)
+
+
 def _g2_infinity() -> Point:
     return Point(Fp2.zero(), Fp2.zero(), True)
 
@@ -43,10 +51,15 @@ def _g2_infinity() -> Point:
 class PublicKey:
     """Validated G1 public key: on curve, in the subgroup, not infinity
     (key-validate per the IETF BLS spec; reference generic_public_key.rs).
-    `_tpu_limbs` caches the limb array (torch_cuda backend)."""
+    `_tpu_limbs` caches the limb array (torch_cuda backend);
+    `validator_index`/`table` are set by the chain's validator pubkey
+    cache, so the batch verifier gathers the key's limbs from the
+    device-resident table by index (`table` is anything with
+    `.gather(indices)`; reference validator_pubkey_cache.rs:10-23)."""
 
     __slots__ = (
-        "point", "_bytes", "_tpu_limbs", "_subgroup_ok",
+        "point", "_bytes", "_tpu_limbs", "validator_index", "table",
+        "_subgroup_ok",
     )
 
     def __init__(
@@ -108,6 +121,24 @@ class PublicKey:
 
     def __repr__(self):
         return f"PublicKey(0x{self.to_bytes().hex()[:16]}…)"
+
+
+class AggregatePublicKey:
+    """Sum of validated public keys (reference generic_aggregate_public_key.rs)."""
+
+    __slots__ = ("point",)
+
+    def __init__(self, point: Point):
+        self.point = point
+
+    @classmethod
+    def aggregate(cls, pubkeys) -> "AggregatePublicKey":
+        if not pubkeys:
+            raise BlsError("cannot aggregate an empty pubkey list")
+        acc = _g1_infinity()
+        for pk in pubkeys:
+            acc = acc + pk.point
+        return cls(acc)
 
 
 class Signature:
@@ -290,4 +321,23 @@ def verify(signature: Signature, pubkeys, message: bytes, device=None) -> bool:
     return verify_signature_sets(
         [SignatureSet.multiple_pubkeys(signature, pubkeys, message)],
         device=device,
+    )
+
+
+def aggregate_verify(signature: Signature, pubkeys, messages, device=None) -> bool:
+    """ONE aggregate signature over DISTINCT messages (the spec's
+    AggregateVerify; reference generic_aggregate_signature.rs). Not
+    expressible as verify_signature_sets (those carry one signature PER
+    message), so the backend implements it directly. The structural
+    verdicts are pinned here: length mismatch, no pubkeys and an infinity
+    signature are False with no device work."""
+    pubkeys = list(pubkeys)
+    messages = [bytes(m) for m in messages]
+    if len(pubkeys) != len(messages) or not pubkeys:
+        return False
+    if signature.point.inf:
+        return False
+    return _ensure_backend().aggregate_verify(
+        signature, pubkeys, messages,
+        device=device if device is not None else _DEVICE,
     )

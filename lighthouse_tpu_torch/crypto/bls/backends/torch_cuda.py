@@ -14,10 +14,17 @@ Batch shapes are padded to power-of-two buckets exactly like the JAX
 backend (padded sets get weight 0 and infinity points), so for one seed
 both backends compute the same limbs at every stage.
 
-Not yet in the port (see ROADMAP.md): the device mesh, the monolithic
-program, aggregate_verify, the device pubkey table, the pipeline and
-scheduler hooks, metrics/tracing/launch ledger, the compile cache and
-the windowed ladder.
+Also here: `aggregate_verify` (the spec's AggregateVerify through the same
+stages plus `_stage_agg_prep`), and the device-resident validator
+`PubkeyTable` with the index-gather marshalling route (`_common_table`,
+`prepack_indices`, `_marshal_batch(index_pack=, pad_to=)`) and the
+keyword duck type `dispatch_verify_signature_sets` that the JAX
+backend's pipeline and scheduler call.
+
+Not yet in the port (see ROADMAP.md): the device mesh (so no sharded
+table), the monolithic program, the pipeline and scheduler objects,
+metrics/tracing/launch ledger, the compile cache, the speculation
+correction and the windowed ladder.
 """
 
 from __future__ import annotations
@@ -40,13 +47,16 @@ W = L.W
 
 def resolve_device(device=None) -> torch.device:
     """The card unless the caller asks for the CPU; never a silent CPU
-    fallback."""
+    fallback. A CUDA device without an index gets the current one, so
+    devices compare equal to those of the tensors placed on them."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "torch_cuda backend: no CUDA device (pass device='cpu' to run "
             "the plain versions on the CPU)"
         )
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -161,6 +171,15 @@ def _stage_group(rpk_aff, rpk_inf, grid_idx, grid_real):
     return TC.to_affine_g1(gpk)
 
 
+def _stage_agg_prep(pk_jac, sig_jac, real):
+    """Aggregate-verify prep: affine pubkeys (padding masked to infinity),
+    the signature's subgroup check and affine form."""
+    pk_aff, pk_inf = TC.to_affine_g1(pk_jac)
+    sig_ok = TC.g2_subgroup_check(sig_jac[None])[0]
+    sig_aff, sig_inf = TC.to_affine_g2(sig_jac[None])
+    return pk_aff, pk_inf | ~real, sig_aff, sig_inf, sig_ok
+
+
 def verify_device(u, h_idx, pk_jac, sig_jac, scalars, real, timer=None):
     """The per-set staged verify: hash the distinct messages, expand to
     sets by `h_idx`, then prep, Miller, final. `timer(name, fn, *args)`
@@ -256,11 +275,62 @@ def marshalled_from_numpy(arrays: dict, device) -> Marshalled:
     )
 
 
-def _marshal_batch(sets, device, seed=None):
+def _common_table(sets):
+    """The shared pubkey table if EVERY pubkey in the batch is tagged with
+    the same one (by the chain's validator pubkey cache), else None."""
+    table = None
+    for s in sets:
+        for key in s.pubkeys:
+            t = getattr(key, "table", None)
+            if t is None:
+                return None
+            if table is None:
+                table = t
+            elif t is not table:
+                return None
+    return table
+
+
+def _pack_index_batch(sets, n_b: int, k_b: int):
+    """The (n_b, k_b) validator-index / pubkey-count mask pack of one fully
+    table-tagged batch: the gather route's host loop."""
+    idx = np.zeros((n_b, k_b), np.int32)
+    mask = np.zeros((n_b, k_b), bool)
+    for i, s in enumerate(sets):
+        for j, key in enumerate(s.pubkeys):
+            idx[i, j] = key.validator_index
+        mask[i, : len(s.pubkeys)] = True
+    return idx, mask
+
+
+def prepack_indices(sets):
+    """Pipeline pre-marshal hook: the gather route's (idx, mask) pack when
+    EVERY pubkey in the batch is tagged with the same table, else None
+    (the batch host-packs limb rows instead). Pure host work."""
+    for s in sets:
+        if not s.pubkeys or s.signature.point.inf:
+            return None
+    if _common_table(sets) is None:
+        return None
+    n_b = _bucket(len(sets))
+    k_b = _bucket(max(len(s.pubkeys) for s in sets))
+    return _pack_index_batch(sets, n_b, k_b)
+
+
+def _marshal_batch(sets, device, seed=None, groups=None, index_pack=None,
+                   pad_to=None):
     """Host-side marshalling for one batch: structural checks, shape
-    bucketing, distinct-message grouping, limb packing, weights and --
-    when grouping collapses the bucketed pairs -- the aggregation grid.
-    Returns None when a structural check already decides the batch."""
+    bucketing, distinct-message grouping, limb packing or the device-table
+    index gather, weights and -- when grouping collapses the bucketed
+    pairs -- the aggregation grid. Returns None when a structural check
+    already decides the batch.
+
+    `groups` is an optional precomputed `aggregation.MessageGroups` and
+    `index_pack` an optional precomputed `prepack_indices` result. `pad_to`
+    raises the set bucket to a warmed capacity: n_b becomes at least
+    `_bucket(pad_to)`, and when the message bucket lands strictly between
+    the floor and n_b, m_b is forced to n_b (padded rows are masked
+    infinities, so verdicts are unchanged)."""
     for s in sets:
         if not s.pubkeys or s.signature.point.inf:
             return None
@@ -270,16 +340,25 @@ def _marshal_batch(sets, device, seed=None):
             if not _api().pubkey_subgroup_ok(pk):
                 return None
 
+    dev = resolve_device(device)
     n = len(sets)
     k = max(len(s.pubkeys) for s in sets)
     n_b = _bucket(n)
     k_b = _bucket(k)
+    if pad_to:
+        n_b = max(n_b, _bucket(int(pad_to)))
+        if index_pack is not None and index_pack[0].shape != (n_b, k_b):
+            index_pack = None  # prepacked at the natural bucket; repack
 
-    groups = AG.group_sets(sets)
+    if groups is None:
+        groups = AG.group_sets(sets)
     m = groups.n_messages
     h_idx = np.zeros((n_b,), np.int32)
     h_idx[:n] = groups.set_message
     m_b = _bucket(m)
+    if pad_to and 4 < m_b < n_b:
+        # the warm family only has m_b in {floor, n_b}
+        m_b = n_b
     u = np.zeros((m_b, 2, 2, W), np.int32)
     for j, msg in enumerate(groups.messages):
         u[j] = _field_draws_cached(msg)
@@ -293,21 +372,38 @@ def _marshal_batch(sets, device, seed=None):
     if m_b < n_b:
         grid_idx, grid_real = AG.group_grid(groups.members, m_b, grid_bucket(n_b))
 
-    pk = np.broadcast_to(_INF_G1, (n_b, k_b, 3, W)).copy()
-    for i, s in enumerate(sets):
-        for j, key in enumerate(s.pubkeys):
-            pk[i, j] = _pk_limbs(key)
+    table = _common_table(sets)
+    pk = None
+    if table is None:
+        pk = np.broadcast_to(_INF_G1, (n_b, k_b, 3, W)).copy()
+        for i, s in enumerate(sets):
+            for j, key in enumerate(s.pubkeys):
+                pk[i, j] = _pk_limbs(key)
 
     scalars = _draw_weight_scalars(seed, n, n_b)
     real = np.zeros((n_b,), bool)
     real[:n] = True
-    return marshalled_from_numpy(
+    mb = marshalled_from_numpy(
         dict(
             u=u, h_idx=h_idx, pk=pk, sig=sig, scalars=scalars, real=real,
             grid_idx=grid_idx, grid_real=grid_real, n_sets=n, n_messages=m,
         ),
-        device,
+        dev,
     )
+    if table is not None:
+        # steady state (validator_pubkey_cache.rs:10-23): the host ships
+        # validator indices; limb rows come from the device-resident table
+        idx, mask = index_pack if index_pack is not None else (
+            _pack_index_batch(sets, n_b, k_b))
+        rows = table.gather(idx)
+        if rows.device != dev:
+            raise ValueError(
+                f"pubkey table on {rows.device}, batch marshalled for {dev}")
+        mb.pk = torch.where(
+            torch.as_tensor(mask).to(dev)[..., None, None], rows,
+            L.on(_INF_G1, dev),
+        )
+    return mb
 
 
 def _api():
@@ -362,10 +458,14 @@ def run_marshalled(mb: Marshalled, timer=None) -> torch.Tensor:
     )
 
 
-def dispatch_verify_signature_sets(sets, seed=None, device=None):
+def dispatch_verify_signature_sets(sets, seed=None, groups=None, index_pack=None,
+                                   pad_to=None, device=None):
     """Marshal + enqueue, no host sync: a zero-dim device bool, or a plain
-    False when a structural check already decided the batch."""
-    mb = _marshal_batch(sets, device, seed=seed)
+    False when a structural check already decided the batch. The keywords
+    are the JAX backend's pipeline/scheduler duck type: precomputed message
+    `groups`, the gather route's `index_pack`, and `pad_to`."""
+    mb = _marshal_batch(sets, device, seed=seed, groups=groups,
+                        index_pack=index_pack, pad_to=pad_to)
     if mb is None:
         return False
     return run_marshalled(mb)
@@ -373,3 +473,105 @@ def dispatch_verify_signature_sets(sets, seed=None, device=None):
 
 def verify_signature_sets(sets, seed=None, device=None) -> bool:
     return bool(dispatch_verify_signature_sets(sets, seed=seed, device=device))
+
+
+def aggregate_verify(signature, pubkeys, messages, device=None, timer=None) -> bool:
+    """prod_i e(pk_i, H(m_i)) * e(-g1, sig) == 1 (reference
+    generic_aggregate_signature.rs aggregate_verify) through the batch
+    verifier's hash, Miller and final stages: `_stage_miller`'s pair layout
+    (one G1 point per row plus the generator pair, one G2 point per row
+    plus one trailing G2 point) is the aggregate's pair structure, so only
+    `_stage_agg_prep` is its own. The structural verdicts (lengths, empty,
+    infinity signature) are the api layer's. `timer` as in verify_device."""
+    for pk in pubkeys:
+        if not _api().pubkey_subgroup_ok(pk):
+            return False
+    dev = resolve_device(device)
+    run = timer or (lambda name, fn, *a: fn(*a))
+    k = len(pubkeys)
+    k_b = _bucket(k)
+    u = np.zeros((k_b, 2, 2, W), np.int32)
+    pk = np.broadcast_to(_INF_G1, (k_b, 3, W)).copy()
+    for i, (key, msg) in enumerate(zip(pubkeys, messages)):
+        u[i] = _field_draws_cached(bytes(msg))
+        pk[i] = _pk_limbs(key)
+    real = np.zeros((k_b,), bool)
+    real[:k] = True
+    real = torch.as_tensor(real).to(dev)
+    pk_aff, pk_inf, sig_aff, sig_inf, sig_ok = run(
+        "agg_prep", _stage_agg_prep, torch.as_tensor(pk).to(dev),
+        torch.as_tensor(_sig_limbs(signature)).to(dev), real,
+    )
+    h_aff, h_inf = run("hash", _stage_hash, torch.as_tensor(u).to(dev))
+    fprod = run(
+        "miller", _stage_miller, pk_aff, pk_inf, h_aff, h_inf | ~real,
+        sig_aff, sig_inf,
+    )
+    return bool(run("final", _stage_final, fprod, sig_ok))
+
+
+# --- device-resident pubkey table ---------------------------------------------
+
+
+class PubkeyTable:
+    """Decompressed validator pubkeys resident on one device, keyed by
+    validator index: the port of jax_tpu.PubkeyTable, the analogue of the
+    reference's ValidatorPubkeyCache (validator_pubkey_cache.rs:10-23,131).
+    Upload once per import of new validators; per-batch traffic is
+    indices. The table lives on `device` (the card unless the caller asks
+    for the CPU).
+
+    The JAX table shards its validator axis over a device mesh past a size
+    floor; that branch waits for the port's mesh (ROADMAP Queue 1), so
+    this table is always whole on its one device.
+    """
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+        self._host = np.zeros((0, 3, W), np.int32)
+        self._dev = None
+
+    def __len__(self) -> int:
+        return self._host.shape[0]
+
+    def import_new_pubkeys(self, pubkeys) -> None:
+        """Append validated pubkeys (validator_pubkey_cache.rs:79). Every
+        key passes key_validate (on curve, in the subgroup, not infinity)
+        before any limb row is packed; the whole import is refused with
+        BlsError on the first bad key, and the table is left unchanged."""
+        if not pubkeys:
+            return
+        pubkeys = list(pubkeys)
+        for i, pk in enumerate(pubkeys):
+            try:
+                ok = _api().pubkey_subgroup_ok(pk)
+            except Exception:  # noqa: BLE001 -- malformed key object
+                ok = False
+            if not ok:
+                raise _api().BlsError(
+                    f"pubkey table import refused: key {i} failed "
+                    "key_validate (malformed, infinity, or outside the "
+                    "r-torsion subgroup)"
+                )
+        rows = np.stack([_pk_limbs(pk) for pk in pubkeys])
+        self._host = np.concatenate([self._host, rows], axis=0)
+        self._dev = None  # re-upload lazily
+
+    def device_table(self) -> torch.Tensor:
+        """The (b, 3, W) int32 table on the device, b = _bucket(n, floor=8);
+        padding rows are G1 infinity."""
+        if self._dev is None:
+            n = len(self._host)
+            b = _bucket(max(n, 1), floor=8)
+            padded = np.broadcast_to(_INF_G1, (b, 3, W)).copy()
+            padded[:n] = self._host
+            self._dev = torch.as_tensor(padded).to(self.device)
+        return self._dev
+
+    def gather(self, indices) -> torch.Tensor:
+        """Validator indices (any shape) -> (..., 3, W) rows on the device.
+        Out-of-range indices clip to the nearest bucketed row, as
+        jnp.take(mode="clip") does (marshalling masks them anyway)."""
+        table = self.device_table()
+        idx = torch.as_tensor(indices).to(self.device, torch.int64)
+        return table[idx.clamp(0, table.shape[0] - 1)]

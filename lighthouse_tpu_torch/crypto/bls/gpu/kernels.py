@@ -1,13 +1,17 @@
 """Hand-written CUDA kernels of the verification hot path: wrappers, plain
 versions and launch counts.
 
-Four kernels replace the four TPU kernels that the main path runs in
+Seven kernels replace the seven TPU kernels of
 lighthouse_tpu/crypto/bls/tpu/pallas_kernels.py:
 
-  fp_mul           <- pallas_kernels.fp_mul (_mul_kernel): every limbs.mul
-  fp_sq            <- pallas_kernels.fp_sq (_sq_kernel): every limbs.sq
-  miller_dbl_step  <- pallas_kernels.miller_dbl_step (_math_miller_dbl)
-  miller_add_step  <- pallas_kernels.miller_add_step (_math_miller_add)
+  fp_mul              <- pallas_kernels.fp_mul (_mul_kernel): every limbs.mul
+  fp_sq               <- pallas_kernels.fp_sq (_sq_kernel): every limbs.sq
+  miller_dbl_step     <- pallas_kernels.miller_dbl_step (_math_miller_dbl)
+  miller_add_step     <- pallas_kernels.miller_add_step (_math_miller_add)
+  fp6_mul             <- pallas_kernels.fp6_mul (_math_fp6_mul): tower.fp6_mul
+  fp12_mul            <- pallas_kernels.fp12_mul (_math_fp12_mul): tower.fp12_mul
+  fp12_cyclotomic_sq  <- pallas_kernels.fp12_cyclotomic_sq (_math_cyclo_sq):
+                         tower.fp12_cyclotomic_sq
 
 Sources are `lighthouse_tpu_torch/csrc/*.cu` over one device field library
 (`field.cuh`). They are compiled with `nvcc` for sm_90a into plain-C shared
@@ -15,11 +19,11 @@ libraries at first use (`build()`), one `nvcc` per source started
 together, and loaded with ctypes. The build directory is `build/kernels/`
 at the repository root, keyed by a hash of the sources.
 
-Each wrapper takes its plain PyTorch version only for CPU tensors; for a
-CUDA tensor it launches the kernel or raises. `LAUNCHES` counts kernel
-launches (only there). The plain versions are the op compositions the
-kernels replace, so a kernel is held bit for bit against its plain
-version on the card.
+Each wrapper checks dtype and shape on any device, then takes its plain
+PyTorch version only for CPU tensors; for a CUDA tensor it launches the
+kernel or raises. `LAUNCHES` counts kernel launches (only there). The
+plain versions are the op compositions the kernels replace, so a kernel
+is held bit for bit against its plain version on the card.
 """
 
 from __future__ import annotations
@@ -45,6 +49,9 @@ LAUNCHES = {
     "fp_sq": 0,
     "miller_dbl_step": 0,
     "miller_add_step": 0,
+    "fp6_mul": 0,
+    "fp12_mul": 0,
+    "fp12_cyclotomic_sq": 0,
 }
 
 
@@ -67,7 +74,10 @@ def fp_sq_plain(a):
 
 
 def miller_dbl_step_plain(f, t, xp, yp):
-    """(mul_by_line(fp12_sq(f), line), 2T): the JAX Miller doubling body."""
+    """(mul_by_line(fp12_sq(f), line), 2T): the JAX Miller doubling body.
+    tower.fp12_sq multiplies through tower.fp6_mul, so on CUDA tensors this
+    composition launches the fp6_mul kernel (bit-identical to
+    fp6_mul_plain) for its two Fp6 products."""
     t2, line = _PR._dbl_step(t, xp, yp)
     return _PR.mul_by_line(T.fp12_sq(f), line), t2
 
@@ -78,13 +88,83 @@ def miller_add_step_plain(f, t, q_aff, xp, yp):
     return _PR.mul_by_line(f, line), t2
 
 
+def fp6_mul_plain(a, b):
+    """tower.fp6_mul as op composition, Fp6 Karatsuba: the three diagonal
+    and three cross Fp2 products as two stacked fp2_mul calls, then the
+    same add/sub chains as the JAX text, stacked across c0, c1, c2."""
+    a, b = torch.broadcast_tensors(a, b)
+    c = T._c
+    t = T.fp2_mul(a, b)  # t0, t1, t2
+    t0, t1, t2 = c(t, 0), c(t, 1), c(t, 2)
+    ab = torch.stack([a, b])
+    s = L._fold_round(  # [a1+a2, a0+a1, a0+a2] and the same for b
+        torch.stack(
+            [c(ab, 1) + c(ab, 2), c(ab, 0) + c(ab, 1), c(ab, 0) + c(ab, 2)],
+            dim=-3,
+        )
+    )
+    m = T.fp2_mul(s[0], s[1])  # (a1+a2)(b1+b2), (a0+a1)(b0+b1), (a0+a2)(b0+b2)
+    u = L.sub(m, torch.stack([t1, t0, t0], dim=-3))
+    v = L.sub(u, torch.stack([t2, t1, t2], dim=-3))
+    xi = T.fp2_mul_by_xi(torch.stack([c(v, 0), t2], dim=-3))
+    return L.add(
+        torch.stack([c(xi, 0), c(v, 1), c(v, 2)], dim=-3),
+        torch.stack([t0, c(xi, 1), t1], dim=-3),
+    )
+
+
+def fp12_mul_plain(a, b):
+    """tower.fp12_mul as op composition: Karatsuba over three Fp6 products
+    (one stacked fp6_mul_plain)."""
+    a, b = torch.broadcast_tensors(a, b)
+    h = T._h
+    a0, a1 = h(a, 0), h(a, 1)
+    b0, b1 = h(b, 0), h(b, 1)
+    s = L.add(torch.stack([a0, b0]), torch.stack([a1, b1]))
+    prod = fp6_mul_plain(
+        torch.stack([a0, a1, s[0]], dim=-4), torch.stack([b0, b1, s[1]], dim=-4)
+    )
+    t0, t1, m = h(prod, 0), h(prod, 1), h(prod, 2)
+    c1 = L.sub(L.sub(m, t0), t1)
+    c0 = L.add(t0, T.fp6_mul_by_v(t1))
+    return torch.stack([c0, c1], dim=-4)
+
+
+def fp12_cyclotomic_sq_plain(a):
+    """tower.fp12_cyclotomic_sq as op composition, Granger-Scott (valid
+    only in the cyclotomic subgroup): 9 Fp2 squarings in ONE stacked
+    fp2_sq call plus linear combines, the six 3t -+ 2x combines as one
+    normalization."""
+    x00, x01, x02 = a[..., 0, 0, :, :], a[..., 0, 1, :, :], a[..., 0, 2, :, :]
+    x10, x11, x12 = a[..., 1, 0, :, :], a[..., 1, 1, :, :], a[..., 1, 2, :, :]
+    sums = L.add(torch.stack([x11, x02, x12]), torch.stack([x00, x10, x01]))
+    sq = T.fp2_sq(torch.cat([torch.stack([x11, x00, x02, x10, x12, x01]), sums]))
+    t0, t1, t2, t3, t4, t5 = sq[0], sq[1], sq[2], sq[3], sq[4], sq[5]
+    d = L.sub(L.sub(sq[6:9], torch.stack([t0, t2, t4])), torch.stack([t1, t3, t5]))
+    t6, t7 = d[0], d[1]
+    xi = T.fp2_mul_by_xi(torch.stack([d[2], t0, t2, t4]))
+    t8 = xi[0]
+    e = L.add(xi[1:4], torch.stack([t1, t3, t5]))
+    t0, t2, t4 = e[0], e[1], e[2]
+    # 3 t -+ 2 x with ONE normalization per slot (sum(|k|) = 5 <= 64)
+    ts = torch.stack([t0, t2, t4, t8, t6, t7])
+    xs = torch.stack([x00, x01, x02, x10, x11, x12])
+    sign = torch.tensor([-2, -2, -2, 2, 2, 2], dtype=torch.int32, device=a.device)
+    out = L._norm(ts * 3 + xs * sign.view((6,) + (1,) * (xs.ndim - 1)))
+    return torch.movedim(out.reshape((2, 3) + out.shape[1:]), (0, 1), (-4, -3))
+
+
 # --- build and load --------------------------------------------------------
 
 _PKG = Path(__file__).resolve().parents[3]  # lighthouse_tpu_torch/
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 # one shared library per source, built by concurrent nvcc processes
-LIBS = {"fp": "fp_kernels.cu", "miller": "miller_kernels.cu"}
+LIBS = {
+    "fp": "fp_kernels.cu",
+    "miller": "miller_kernels.cu",
+    "tower": "tower_kernels.cu",
+}
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _lock = threading.Lock()
@@ -164,20 +244,22 @@ def build() -> dict:
         return BUILD_INFO
 
 
+# C entry points of each library: name -> number of pointer arguments
+# (outputs, then inputs); each also takes the row count and the stream
+ENTRY = {
+    "fp": {"lh_fp_mul": 3, "lh_fp_sq": 2},
+    "miller": {"lh_miller_dbl": 6, "lh_miller_add": 7},
+    "tower": {"lh_fp6_mul": 3, "lh_fp12_mul": 3, "lh_fp12_cyclo_sq": 2},
+}
+
+
 def _bind(name, lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.lh_init.argtypes = [vp]
     lib.lh_init.restype = ci
-    if name == "fp":
-        lib.lh_fp_mul.argtypes = [vp, vp, vp, ci, vp]
-        lib.lh_fp_mul.restype = ci
-        lib.lh_fp_sq.argtypes = [vp, vp, ci, vp]
-        lib.lh_fp_sq.restype = ci
-    else:
-        lib.lh_miller_dbl.argtypes = [vp, vp, vp, vp, vp, vp, ci, vp]
-        lib.lh_miller_dbl.restype = ci
-        lib.lh_miller_add.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, vp]
-        lib.lh_miller_add.restype = ci
+    for fn, n_ptr in ENTRY[name].items():
+        getattr(lib, fn).argtypes = [vp] * n_ptr + [ci, vp]
+        getattr(lib, fn).restype = ci
 
 
 def _lib(name: str, device: torch.device):
@@ -214,109 +296,145 @@ def _on_card(*ts) -> bool:
     raise ValueError(f"kernel operands on unsupported devices {kinds}")
 
 
-def _rows(t, slots: int, n: int, what: str):
-    """(..., slots*W) view as (n, slots*W), int32, contiguous."""
-    if t.dtype != torch.int32:
-        raise TypeError(f"{what}: dtype {t.dtype}, want int32")
+def _rows(t, slots: int, n: int):
+    """(..., slots*W) as (n, slots*W) rows, contiguous (copies a strided or
+    broadcast operand)."""
     return t.reshape(n, slots * W).contiguous()
 
 
 # --- wrappers ----------------------------------------------------------------
 
 
+def _operands(what: str, tail: tuple, *ts):
+    """The operands broadcast together, after checking dtype int32 and the
+    trailing shape `tail`; raises on a mismatch, on any device."""
+    for t in ts:
+        if t.dtype != torch.int32:
+            raise TypeError(f"{what}: dtype {t.dtype}, want int32")
+    ts = torch.broadcast_tensors(*ts)
+    if ts[0].shape[ts[0].dim() - len(tail):] != tail:
+        raise ValueError(
+            f"{what}: shape {tuple(ts[0].shape)}, want (..., {tail})"
+        )
+    return ts
+
+
+def _launch(what: str, lib: str, fn: str, outs, ins, n: int) -> None:
+    """Launch C entry `fn` of library `lib` on the n rows of the row-major
+    tensors `outs` and `ins`, on the current stream of their device; raise
+    on a nonzero cudaGetLastError(); count the launch."""
+    if not n:
+        return
+    dev = outs[0].device
+    with torch.cuda.device(dev):
+        ptrs = [t.data_ptr() for t in (*outs, *ins)]
+        _check(getattr(_lib(lib, dev), fn)(*ptrs, n, _stream(outs[0])), what)
+    LAUNCHES[what] += 1
+
+
 def fp_mul(a, b):
     """Fp product of lazy limbs, any broadcast leading shape."""
+    x, y = _operands("fp_mul", (W,), a, b)
     if not _on_card(a, b):
         return fp_mul_plain(a, b)
-    a, b = torch.broadcast_tensors(a, b)
-    if a.shape[-1] != W:
-        raise ValueError(f"fp_mul: last dim {a.shape[-1]}, want {W}")
-    n = a.numel() // W
-    a2, b2 = _rows(a, 1, n, "fp_mul"), _rows(b, 1, n, "fp_mul")
-    out = torch.empty_like(a2)
-    if n:
-        with torch.cuda.device(out.device):
-            _check(
-                _lib("fp", out.device).lh_fp_mul(
-                    out.data_ptr(), a2.data_ptr(), b2.data_ptr(), n, _stream(out)
-                ),
-                "fp_mul",
-            )
-        LAUNCHES["fp_mul"] += 1
-    return out.reshape(a.shape)
+    n = x.numel() // W
+    out = torch.empty((n, W), dtype=torch.int32, device=x.device)
+    _launch("fp_mul", "fp", "lh_fp_mul", [out],
+            [_rows(x, 1, n), _rows(y, 1, n)], n)
+    return out.reshape(x.shape)
 
 
 def fp_sq(a):
     """Fp square of lazy limbs, bit-identical to fp_mul(a, a)."""
+    (x,) = _operands("fp_sq", (W,), a)
     if not _on_card(a):
         return fp_sq_plain(a)
-    if a.shape[-1] != W:
-        raise ValueError(f"fp_sq: last dim {a.shape[-1]}, want {W}")
-    n = a.numel() // W
-    a2 = _rows(a, 1, n, "fp_sq")
-    out = torch.empty_like(a2)
-    if n:
-        with torch.cuda.device(out.device):
-            _check(
-                _lib("fp", out.device).lh_fp_sq(
-                    out.data_ptr(), a2.data_ptr(), n, _stream(out)
-                ),
-                "fp_sq",
-            )
-        LAUNCHES["fp_sq"] += 1
-    return out.reshape(a.shape)
+    n = x.numel() // W
+    out = torch.empty((n, W), dtype=torch.int32, device=x.device)
+    _launch("fp_sq", "fp", "lh_fp_sq", [out], [_rows(x, 1, n)], n)
+    return out.reshape(x.shape)
 
 
 def miller_dbl_step(f, t, xp, yp):
     """Fused Miller doubling step: f (..., 2,3,2,W), T (..., 3,2,W), P affine
-    (..., W) each -> (mul_by_line(fp12_sq(f), line), 2T)."""
+    (..., W) each -> (mul_by_line(fp12_sq(f), line), 2T). Its plain
+    version squares f through tower.fp6_mul, which on a CUDA tensor is the
+    fp6_mul kernel (bit-identical to its own plain version)."""
+    (f,) = _operands("miller_dbl_step", (2, 3, 2, W), f)
+    lead = f.shape[:-4]
+    (t,) = _operands("miller_dbl_step", (3, 2, W), t)
+    if t.shape != lead + (3, 2, W):
+        raise ValueError(f"miller_dbl_step: shapes {f.shape}, {t.shape}")
+    xp, yp = _operands("miller_dbl_step", (W,), xp, yp)
     if not _on_card(f, t, xp, yp):
         return miller_dbl_step_plain(f, t, xp, yp)
-    lead = f.shape[:-4]
-    if f.shape[-4:] != (2, 3, 2, W) or t.shape != lead + (3, 2, W):
-        raise ValueError(f"miller_dbl_step: shapes {f.shape}, {t.shape}")
     n = lead.numel()
-    f2 = _rows(f, 12, n, "miller_dbl_step")
-    t2 = _rows(t, 6, n, "miller_dbl_step")
-    x2 = _rows(xp.expand(lead + (W,)), 1, n, "miller_dbl_step")
-    y2 = _rows(yp.expand(lead + (W,)), 1, n, "miller_dbl_step")
-    fo, to = torch.empty_like(f2), torch.empty_like(t2)
-    if n:
-        with torch.cuda.device(fo.device):
-            _check(
-                _lib("miller", fo.device).lh_miller_dbl(
-                    fo.data_ptr(), to.data_ptr(), f2.data_ptr(), t2.data_ptr(),
-                    x2.data_ptr(), y2.data_ptr(), n, _stream(fo),
-                ),
-                "miller_dbl_step",
-            )
-        LAUNCHES["miller_dbl_step"] += 1
+    fo = torch.empty((n, 12 * W), dtype=torch.int32, device=f.device)
+    to = torch.empty((n, 6 * W), dtype=torch.int32, device=f.device)
+    ins = [_rows(f, 12, n), _rows(t, 6, n),
+           _rows(xp.expand(lead + (W,)), 1, n),
+           _rows(yp.expand(lead + (W,)), 1, n)]
+    _launch("miller_dbl_step", "miller", "lh_miller_dbl", [fo, to], ins, n)
     return fo.reshape(f.shape), to.reshape(t.shape)
 
 
 def miller_add_step(f, t, q_aff, xp, yp):
     """Fused Miller addition step: plus Q affine (..., 2,2,W) ->
     (mul_by_line(f, line), T + Q)."""
+    (f,) = _operands("miller_add_step", (2, 3, 2, W), f)
+    lead = f.shape[:-4]
+    (t,) = _operands("miller_add_step", (3, 2, W), t)
+    if t.shape != lead + (3, 2, W):
+        raise ValueError(f"miller_add_step: shapes {f.shape}, {t.shape}")
+    (q_aff,) = _operands("miller_add_step", (2, 2, W), q_aff)
+    xp, yp = _operands("miller_add_step", (W,), xp, yp)
     if not _on_card(f, t, q_aff, xp, yp):
         return miller_add_step_plain(f, t, q_aff, xp, yp)
-    lead = f.shape[:-4]
-    if f.shape[-4:] != (2, 3, 2, W) or t.shape != lead + (3, 2, W):
-        raise ValueError(f"miller_add_step: shapes {f.shape}, {t.shape}")
     n = lead.numel()
-    f2 = _rows(f, 12, n, "miller_add_step")
-    t2 = _rows(t, 6, n, "miller_add_step")
-    q2 = _rows(q_aff.expand(lead + (2, 2, W)), 4, n, "miller_add_step")
-    x2 = _rows(xp.expand(lead + (W,)), 1, n, "miller_add_step")
-    y2 = _rows(yp.expand(lead + (W,)), 1, n, "miller_add_step")
-    fo, to = torch.empty_like(f2), torch.empty_like(t2)
-    if n:
-        with torch.cuda.device(fo.device):
-            _check(
-                _lib("miller", fo.device).lh_miller_add(
-                    fo.data_ptr(), to.data_ptr(), f2.data_ptr(), t2.data_ptr(),
-                    q2.data_ptr(), x2.data_ptr(), y2.data_ptr(), n, _stream(fo),
-                ),
-                "miller_add_step",
-            )
-        LAUNCHES["miller_add_step"] += 1
+    fo = torch.empty((n, 12 * W), dtype=torch.int32, device=f.device)
+    to = torch.empty((n, 6 * W), dtype=torch.int32, device=f.device)
+    ins = [_rows(f, 12, n), _rows(t, 6, n),
+           _rows(q_aff.expand(lead + (2, 2, W)), 4, n),
+           _rows(xp.expand(lead + (W,)), 1, n),
+           _rows(yp.expand(lead + (W,)), 1, n)]
+    _launch("miller_add_step", "miller", "lh_miller_add", [fo, to], ins, n)
     return fo.reshape(f.shape), to.reshape(t.shape)
+
+
+def fp6_mul(a, b):
+    """Fp6 product, (..., 3, 2, W) each, any broadcast leading shape (the
+    stacked call in tower.fp12_inv broadcasts one inverse over two rows)."""
+    x, y = _operands("fp6_mul", (3, 2, W), a, b)
+    if not _on_card(a, b):
+        return fp6_mul_plain(a, b)
+    n = x.shape[:-3].numel()
+    out = torch.empty((n, 6 * W), dtype=torch.int32, device=x.device)
+    _launch("fp6_mul", "tower", "lh_fp6_mul", [out],
+            [_rows(x, 6, n), _rows(y, 6, n)], n)
+    return out.reshape(x.shape)
+
+
+def fp12_mul(a, b):
+    """Fp12 product, (..., 2, 3, 2, W) each, any broadcast leading shape
+    (strided halves from fp12_prod are copied to rows)."""
+    x, y = _operands("fp12_mul", (2, 3, 2, W), a, b)
+    if not _on_card(a, b):
+        return fp12_mul_plain(a, b)
+    n = x.shape[:-4].numel()
+    out = torch.empty((n, 12 * W), dtype=torch.int32, device=x.device)
+    _launch("fp12_mul", "tower", "lh_fp12_mul", [out],
+            [_rows(x, 12, n), _rows(y, 12, n)], n)
+    return out.reshape(x.shape)
+
+
+def fp12_cyclotomic_sq(a):
+    """Granger-Scott square of (..., 2, 3, 2, W), valid in the cyclotomic
+    subgroup."""
+    (x,) = _operands("fp12_cyclotomic_sq", (2, 3, 2, W), a)
+    if not _on_card(a):
+        return fp12_cyclotomic_sq_plain(a)
+    n = x.shape[:-4].numel()
+    out = torch.empty((n, 12 * W), dtype=torch.int32, device=x.device)
+    _launch("fp12_cyclotomic_sq", "tower", "lh_fp12_cyclo_sq", [out],
+            [_rows(x, 12, n)], n)
+    return out.reshape(x.shape)

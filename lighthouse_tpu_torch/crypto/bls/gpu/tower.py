@@ -12,6 +12,10 @@ often stacks them into one call on a new axis: each row still goes through
 the same formula, so the limbs are the same, and the GPU runs a few large
 ops instead of many tiny ones (the plain layers are launch-bound).
 
+`fp6_mul`, `fp12_mul` and `fp12_cyclotomic_sq` go through the wrappers in
+kernels.py: a hand-written CUDA kernel for a CUDA tensor, the op
+composition (`kernels.*_plain`) for a CPU one.
+
 Static-exponent powers run as Python loops over the host bit table, and a
 `lax.cond` on such a bit becomes a Python `if`. The batch inverses keep
 `jax.lax.associative_scan`'s pairing order (`_assoc_scan`): lazy limbs are
@@ -229,27 +233,9 @@ fp6_neg = L.neg
 
 
 def fp6_mul(a, b):
-    """Fp6 Karatsuba: the three diagonal and three cross Fp2 products as
-    two stacked fp2_mul calls, then the same add/sub chains as the JAX
-    text, stacked across c0, c1, c2."""
-    a, b = torch.broadcast_tensors(a, b)
-    t = fp2_mul(a, b)  # t0, t1, t2
-    t0, t1, t2 = _c(t, 0), _c(t, 1), _c(t, 2)
-    ab = torch.stack([a, b])
-    s = L._fold_round(  # [a1+a2, a0+a1, a0+a2] and the same for b
-        torch.stack(
-            [_c(ab, 1) + _c(ab, 2), _c(ab, 0) + _c(ab, 1), _c(ab, 0) + _c(ab, 2)],
-            dim=-3,
-        )
-    )
-    m = fp2_mul(s[0], s[1])  # (a1+a2)(b1+b2), (a0+a1)(b0+b1), (a0+a2)(b0+b2)
-    u = L.sub(m, torch.stack([t1, t0, t0], dim=-3))
-    v = L.sub(u, torch.stack([t2, t1, t2], dim=-3))
-    xi = fp2_mul_by_xi(torch.stack([_c(v, 0), t2], dim=-3))
-    return L.add(
-        torch.stack([_c(xi, 0), _c(v, 1), _c(v, 2)], dim=-3),
-        torch.stack([t0, _c(xi, 1), t1], dim=-3),
-    )
+    """Fp6 Karatsuba product: the fp6_mul kernel on CUDA tensors, the op
+    composition kernels.fp6_mul_plain on CPU ones."""
+    return _K.fp6_mul(a, b)
 
 
 def fp6_sq(a):
@@ -292,17 +278,9 @@ def _h(a, i):
 
 
 def fp12_mul(a, b):
-    a, b = torch.broadcast_tensors(a, b)
-    a0, a1 = _h(a, 0), _h(a, 1)
-    b0, b1 = _h(b, 0), _h(b, 1)
-    s = fp6_add(torch.stack([a0, b0]), torch.stack([a1, b1]))
-    prod = fp6_mul(
-        torch.stack([a0, a1, s[0]], dim=-4), torch.stack([b0, b1, s[1]], dim=-4)
-    )
-    t0, t1, m = _h(prod, 0), _h(prod, 1), _h(prod, 2)
-    c1 = fp6_sub(fp6_sub(m, t0), t1)
-    c0 = fp6_add(t0, fp6_mul_by_v(t1))
-    return torch.stack([c0, c1], dim=-4)
+    """Fp12 Karatsuba product over three Fp6 products: the fp12_mul kernel
+    on CUDA tensors, kernels.fp12_mul_plain on CPU ones."""
+    return _K.fp12_mul(a, b)
 
 
 def fp12_sq(a):
@@ -317,26 +295,10 @@ def fp12_sq(a):
 
 
 def fp12_cyclotomic_sq(a):
-    """Granger-Scott squaring, valid only in the cyclotomic subgroup: 9 Fp2
-    squarings in ONE stacked fp2_sq call plus linear combines (the six
-    3t -+ 2x combines as one normalization)."""
-    x00, x01, x02 = a[..., 0, 0, :, :], a[..., 0, 1, :, :], a[..., 0, 2, :, :]
-    x10, x11, x12 = a[..., 1, 0, :, :], a[..., 1, 1, :, :], a[..., 1, 2, :, :]
-    sums = fp2_add(torch.stack([x11, x02, x12]), torch.stack([x00, x10, x01]))
-    sq = fp2_sq(torch.cat([torch.stack([x11, x00, x02, x10, x12, x01]), sums]))
-    t0, t1, t2, t3, t4, t5 = sq[0], sq[1], sq[2], sq[3], sq[4], sq[5]
-    d = fp2_sub(fp2_sub(sq[6:9], torch.stack([t0, t2, t4])), torch.stack([t1, t3, t5]))
-    t6, t7 = d[0], d[1]
-    xi = fp2_mul_by_xi(torch.stack([d[2], t0, t2, t4]))
-    t8 = xi[0]
-    e = fp2_add(xi[1:4], torch.stack([t1, t3, t5]))
-    t0, t2, t4 = e[0], e[1], e[2]
-    # 3 t -+ 2 x with ONE normalization per slot (sum(|k|) = 5 <= 64)
-    ts = torch.stack([t0, t2, t4, t8, t6, t7])
-    xs = torch.stack([x00, x01, x02, x10, x11, x12])
-    sign = torch.tensor([-2, -2, -2, 2, 2, 2], dtype=torch.int32, device=a.device)
-    out = L._norm(ts * 3 + xs * sign.view((6,) + (1,) * (xs.ndim - 1)))
-    return torch.movedim(out.reshape((2, 3) + out.shape[1:]), (0, 1), (-4, -3))
+    """Granger-Scott squaring, valid only in the cyclotomic subgroup: the
+    fp12_cyclotomic_sq kernel on CUDA tensors,
+    kernels.fp12_cyclotomic_sq_plain on CPU ones."""
+    return _K.fp12_cyclotomic_sq(a)
 
 
 def fp12_conj(a):
@@ -400,3 +362,6 @@ def fp12_frobenius_n(a, n: int):
     for _ in range(n):
         a = fp12_frobenius(a)
     return a
+
+
+from . import kernels as _K  # noqa: E402  (kernels imports this module)

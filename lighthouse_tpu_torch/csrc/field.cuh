@@ -160,6 +160,18 @@ __device__ __noinline__ void mul_small_n(int* out, const int* a, int k, int n) {
   }
 }
 
+// limbs.lincomb of two terms on n elements: norm(ka * a + kb * b), the sum
+// taken in int32 as _k_lincomb does, |ka| + |kb| <= 64
+__device__ __noinline__ void lincomb_n(int* out, const int* a, int ka,
+                                       const int* b, int kb, int n) {
+  for (int e = 0; e < n; ++e) {
+    int t[W + 3];
+    for (int i = 0; i < W; ++i) t[i] = a[e * W + i] * ka + b[e * W + i] * kb;
+    norm(t);
+    for (int i = 0; i < W; ++i) out[e * W + i] = t[i];
+  }
+}
+
 __device__ __forceinline__ void copy_n(int* out, const int* a, int n) {
   for (int i = 0; i < n * W; ++i) out[i] = a[i];
 }
@@ -277,6 +289,72 @@ __device__ __noinline__ void fp12_sq(int* out, const int* a) {
   fp6_mul_by_v(x, t);
   sub_n(r, m, x, 6);
   add_n(r + F6, t, t, 6);
+  copy_n(out, r, 12);
+}
+
+// tower.fp12_mul (_k12_mul): Karatsuba over three Fp6 products
+__device__ __noinline__ void fp12_mul(int* out, const int* a, const int* b) {
+  const int *a0 = a, *a1 = a + F6;
+  const int *b0 = b, *b1 = b + F6;
+  int t0[F6], t1[F6], x[F6], y[F6];
+  int r[F12];
+  fp6_mul(t0, a0, b0);
+  fp6_mul(t1, a1, b1);
+  // c1 = (a0+a1)(b0+b1) - t0 - t1
+  add_n(x, a0, a1, 6);
+  add_n(y, b0, b1, 6);
+  fp6_mul(x, x, y);
+  sub_n(x, x, t0, 6);
+  sub_n(r + F6, x, t1, 6);
+  // c0 = t0 + v t1
+  fp6_mul_by_v(y, t1);
+  add_n(r, t0, y, 6);
+  copy_n(out, r, 12);
+}
+
+// tower.fp12_cyclotomic_sq (_k12_cyclo_sq): Granger-Scott squaring, valid
+// in the cyclotomic subgroup. Nine Fp2 squares, then the six combines
+// 3 t -+ 2 x, each one normalization (lincomb_n).
+__device__ __noinline__ void fp12_cyclo_sq(int* out, const int* a) {
+  // x_ij is slot (i, j) of the (2, 3) Fp2 grid
+  const int *x00 = a, *x01 = a + F2, *x02 = a + 2 * F2;
+  const int *x10 = a + 3 * F2, *x11 = a + 4 * F2, *x12 = a + 5 * F2;
+  int sq[9 * F2], s[F2];
+  int r[F12];
+  int *t0 = sq, *t1 = sq + F2, *t2 = sq + 2 * F2, *t3 = sq + 3 * F2;
+  int *t4 = sq + 4 * F2, *t5 = sq + 5 * F2;
+  int *t6 = sq + 6 * F2, *t7 = sq + 7 * F2, *t8 = sq + 8 * F2;
+  fp2_sq(t0, x11);
+  fp2_sq(t1, x00);
+  fp2_sq(t2, x02);
+  fp2_sq(t3, x10);
+  fp2_sq(t4, x12);
+  fp2_sq(t5, x01);
+  add_n(s, x11, x00, 2);
+  fp2_sq(t6, s);
+  add_n(s, x02, x10, 2);
+  fp2_sq(t7, s);
+  add_n(s, x12, x01, 2);
+  fp2_sq(t8, s);
+  sub_n(t6, t6, t0, 2);               // t6 = 2 x11 x00
+  sub_n(t6, t6, t1, 2);
+  sub_n(t7, t7, t2, 2);               // t7 = 2 x02 x10
+  sub_n(t7, t7, t3, 2);
+  sub_n(t8, t8, t4, 2);               // t8 = 2 xi x12 x01
+  sub_n(t8, t8, t5, 2);
+  fp2_mul_by_xi(t8, t8);
+  fp2_mul_by_xi(t0, t0);              // t0 = x00^2 + xi x11^2
+  add_n(t0, t0, t1, 2);
+  fp2_mul_by_xi(t2, t2);
+  add_n(t2, t2, t3, 2);
+  fp2_mul_by_xi(t4, t4);
+  add_n(t4, t4, t5, 2);
+  lincomb_n(r, t0, 3, x00, -2, 2);
+  lincomb_n(r + F2, t2, 3, x01, -2, 2);
+  lincomb_n(r + 2 * F2, t4, 3, x02, -2, 2);
+  lincomb_n(r + 3 * F2, t8, 3, x10, 2, 2);
+  lincomb_n(r + 4 * F2, t6, 3, x11, 2, 2);
+  lincomb_n(r + 5 * F2, t7, 3, x12, 2, 2);
   copy_n(out, r, 12);
 }
 

@@ -3,7 +3,8 @@ verify_signature_sets(device="cpu") against lighthouse_tpu's
 verify_signature_sets on the pure-Python CPU oracle, on small batches over
 both device routes (per-set and message-aggregated); the weights drawn
 equal for one seed; the JAX backend's marshalled batch carried across;
-and no port file imports jax or lighthouse_tpu.
+the pipeline's keyword duck type and the pubkey-table tags; and no port
+file imports jax or lighthouse_tpu.
 
 The five device stages bit-identical to jax_tpu's jitted stages is the
 `slow` test at the end: the staged-verifier compile takes minutes on a
@@ -183,6 +184,41 @@ def test_entry_points_refuse_a_missing_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TB.resolve_device(None)
     assert TB.resolve_device("cpu").type == "cpu"
+
+
+def test_dispatch_keywords_are_the_jax_backends():
+    """The pipeline and scheduler call dispatch_verify_signature_sets with
+    keywords; the port takes the same ones, in the same order, plus its
+    device."""
+    import inspect
+
+    jparams = list(inspect.signature(jax_tpu.dispatch_verify_signature_sets).parameters)
+    tparams = list(inspect.signature(TB.dispatch_verify_signature_sets).parameters)
+    assert tparams == jparams + ["device"]
+    jm = list(inspect.signature(jax_tpu._marshal_batch).parameters)
+    tm = list(inspect.signature(TB._marshal_batch).parameters)
+    assert tm == jm[:1] + ["device"] + jm[1:]
+
+
+def test_public_key_carries_the_table_tags_like_jax():
+    assert set(tapi.PublicKey.__slots__) == set(japi.PublicKey.__slots__)
+    pk = tapi.SecretKey(99).public_key()
+    pk.validator_index, pk.table = 7, object()
+    assert pk.validator_index == 7
+
+
+def test_prepack_indices_leaves_structural_rejects_to_marshalling(signed):
+    """Empty pubkeys or an infinity signature: no index pack in either
+    package (marshalling rejects the batch)."""
+    jsets, tsets = _both(signed, [((0,), 0, None)])
+    jempty = [japi.SignatureSet(jsets[0].signature, [], jsets[0].message)]
+    tempty = [tapi.SignatureSet(tsets[0].signature, [], tsets[0].message)]
+    assert jax_tpu.prepack_indices(jempty) is None
+    assert TB.prepack_indices(tempty) is None
+    tinf = [tapi.SignatureSet(tapi.Signature.infinity(), tsets[0].pubkeys,
+                              tsets[0].message)]
+    assert TB.prepack_indices(tinf) is None
+    assert TB._marshal_batch(tinf, "cpu", seed=1) is None
 
 
 def _port_files():

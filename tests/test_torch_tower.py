@@ -1,13 +1,17 @@
 """Port parity: gpu/tower.py against lighthouse_tpu's tower.py, bit for
 bit -- including the batch inverses, whose prefix products must pair up in
 jax.lax.associative_scan's order (lazy limbs are not canonical, so another
-order gives other limbs)."""
+order gives other limbs) -- and the tower kernel wrappers (fp6_mul,
+fp12_mul, fp12_cyclotomic_sq) on CPU tensors, where they must return their
+plain versions exactly."""
 
 import numpy as np
 import pytest
+import torch
 
 from lighthouse_tpu.crypto.bls.tpu import tower as JT
 from lighthouse_tpu_torch.crypto.bls.constants import P
+from lighthouse_tpu_torch.crypto.bls.gpu import kernels as K
 from lighthouse_tpu_torch.crypto.bls.gpu import tower as T
 
 from torch_port_util import assert_same, lazy
@@ -102,3 +106,93 @@ def test_fp12_mul_bitexact_with_broadcast():
 
 def test_frobenius_constants_equal_jax():
     np.testing.assert_array_equal(T._GAMMA_J, np.asarray(JT._GAMMA_J))
+
+
+# --- the tower kernel wrappers on CPU tensors ---------------------------------
+
+TOWER_WRAPPERS = {
+    # name: (wrapper, plain version, operand tail shape, arity)
+    "fp6_mul": (K.fp6_mul, K.fp6_mul_plain, (3, 2), 2),
+    "fp12_mul": (K.fp12_mul, K.fp12_mul_plain, (2, 3, 2), 2),
+    "fp12_cyclotomic_sq": (
+        K.fp12_cyclotomic_sq, K.fp12_cyclotomic_sq_plain, (2, 3, 2), 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TOWER_WRAPPERS))
+def test_tower_wrappers_on_cpu_return_the_plain_version(name):
+    """On CPU tensors each wrapper returns exactly its plain version, on
+    plain, broadcast and strided operands (fp12_prod hands fp12_mul the
+    halves f[0::2], f[1::2]; fp12_inv broadcasts one Fp6 inverse), and
+    counts no launch."""
+    wrap, plain, tail, arity = TOWER_WRAPPERS[name]
+    rng = np.random.default_rng(45)
+    x = torch.as_tensor(lazy(rng, (6,) + tail, maximal_rows=1))
+    cases = [(x[:3], x[3:])[:arity], (x[0::2], x[1::2])[:arity],
+             (x[:1, None], x[1:3])[:arity], (x[2],)]
+    if arity == 2:
+        cases[-1] = (x[:4], x[5])
+    K.reset_launches()
+    for args in cases:
+        got, want = wrap(*args), plain(*args)
+        assert got.dtype == torch.int32 and got.shape == want.shape
+        assert torch.equal(got, want)
+    assert K.LAUNCHES[name] == 0
+
+
+def test_tower_dispatch_goes_through_the_wrappers():
+    """gpu/tower.py's names route to the kernel wrappers, whose plain
+    versions are the op compositions (no recursion through tower)."""
+    rng = np.random.default_rng(46)
+    a = torch.as_tensor(lazy(rng, (2, 2, 3, 2)))
+    b = torch.as_tensor(lazy(rng, (2, 2, 3, 2)))
+    assert torch.equal(T.fp12_mul(a, b), K.fp12_mul_plain(a, b))
+    assert torch.equal(T.fp12_cyclotomic_sq(a), K.fp12_cyclotomic_sq_plain(a))
+    assert torch.equal(T.fp6_mul(a[:, 0], b[:, 1]), K.fp6_mul_plain(a[:, 0], b[:, 1]))
+
+
+@pytest.mark.parametrize("name", sorted(TOWER_WRAPPERS))
+def test_tower_wrappers_refuse_wrong_dtype_and_shape(name):
+    wrap, _, tail, arity = TOWER_WRAPPERS[name]
+    rng = np.random.default_rng(47)
+    x = torch.as_tensor(lazy(rng, (2,) + tail))
+    with pytest.raises(TypeError, match="int32"):
+        wrap(*[x.long()] * arity)
+    with pytest.raises(ValueError, match=name):
+        wrap(*[x[..., :34]] * arity)
+    with pytest.raises(ValueError, match=name):
+        wrap(*[x[..., 0, :, :]] * arity)
+    if arity == 2:
+        with pytest.raises(RuntimeError):  # leading shapes do not broadcast
+            wrap(x, torch.cat([x, x, x]))
+
+
+@pytest.mark.parametrize("name", sorted(TOWER_WRAPPERS))
+def test_tower_plain_versions_bitexact_with_jax_all_maximal(name):
+    """The plain versions against the JAX lax functions (which the Pallas
+    kernels equal by contract), every operand limb at 2^12 in the first
+    row."""
+    jf = {"fp6_mul": JT.fp6_mul, "fp12_mul": JT.fp12_mul,
+          "fp12_cyclotomic_sq": JT.fp12_cyclotomic_sq}[name]
+    _, plain, tail, arity = TOWER_WRAPPERS[name]
+    rng = np.random.default_rng(48)
+    args = [lazy(rng, (3,) + tail, maximal_rows=1) for _ in range(arity)]
+    assert_same(jf, plain, *args)
+
+
+def test_c_entry_points_match_the_bindings():
+    """Every C entry point bound in kernels.ENTRY is defined in its
+    library's source with that many pointer arguments before `int n,
+    void* stream` (a mismatch would pass garbage pointers on the card)."""
+    import re
+
+    for lib, src in K.LIBS.items():
+        text = (K.CSRC / src).read_text()
+        for fn, n_ptr in K.ENTRY[lib].items():
+            m = re.search(r'extern "C" int %s\(([^)]*)\)' % fn, text)
+            assert m, (src, fn)
+            args = [a.strip() for a in m.group(1).split(",")]
+            assert args[-2:] == ["int n", "void* stream"], (fn, args)
+            assert len(args) - 2 == n_ptr, (fn, args)
+            assert all(a.endswith("*") or "* " in a for a in args[:-2]), args
+    assert set(K.ENTRY) == set(K.LIBS)
