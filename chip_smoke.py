@@ -16,7 +16,9 @@ Phases (each one fails the run with a nonzero exit):
              all three at a ragged 1025), on seeded lazy limbs, on every
              operand's limbs at the maximum 2^12, and on a mix of the two:
              torch.equal on int32; strided and broadcast tower operands
-             too; times
+             too; times: the wrapper's (events around calls, host work
+             included) and the kernel's own device time per launch
+             (torch.profiler)
   parity     a 4-set batch through the five stages on the card and on the
              CPU (plain versions): every stage output bit-identical; the
              same for _stage_agg_prep and for the pubkey rows that
@@ -85,6 +87,16 @@ KERNEL_META = {
     "fp12_mul": ("lighthouse_tpu_torch/csrc/tower_kernels.cu", TPU_KERNELS + ":718"),
     "fp12_cyclotomic_sq": (
         "lighthouse_tpu_torch/csrc/tower_kernels.cu", TPU_KERNELS + ":728"),
+}
+# each wrapper's CUDA kernel, as the profiler names it
+KERNEL_SYMBOL = {
+    "fp_mul": "fp_mul_kernel",
+    "fp_sq": "fp_sq_kernel",
+    "miller_dbl_step": "miller_dbl_kernel",
+    "miller_add_step": "miller_add_kernel",
+    "fp6_mul": "fp6_mul_kernel",
+    "fp12_mul": "fp12_mul_kernel",
+    "fp12_cyclotomic_sq": "fp12_cyclo_sq_kernel",
 }
 
 
@@ -244,6 +256,43 @@ def cuda_ms(torch, fn, reps: int, warm: int = 1) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def is_kernel_key(symbol: str, key: str) -> bool:
+    """Whether a profiler event key (a demangled kernel name such as
+    "(anonymous namespace)::fp_mul_kernel(int*, int const*, ...)") names the
+    kernel `symbol`: whole identifier only, so fp_mul_kernel does not match
+    fp6_mul_kernel or fp12_mul_kernel."""
+    return re.search(r"(^|\W)%s(\W|$)" % re.escape(symbol), key) is not None
+
+
+def device_ms(torch, fn, reps: int, symbol: str) -> float:
+    """The device time per launch of kernel `symbol` over `reps` calls of
+    `fn`: its self device time in torch.profiler's key_averages() over the
+    launches the profiler recorded. The wrapper's host work and its
+    operand copies (other kernels) are left out, so at a few microseconds a
+    launch this is the kernel, where cuda_ms is the wrapper. The profiler
+    may miss a launch at the edge of its window, and a process's first
+    profiling pass has come back empty on a fresh machine: a pass that saw
+    fewer than half the launches is logged and made again, three times at
+    most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type.name == "CUDA" and is_kernel_key(symbol, e.key)]
+        count = sum(e.count for e in hits)
+        if reps // 2 <= count <= reps:
+            return sum(e.self_device_time_total for e in hits) / count / 1e3
+        log(f"profiler saw {count} launches of {symbol} in {reps} calls "
+            f"(pass {attempt + 1} of 3)")
+    raise Fail(f"profiler never saw the launches of {symbol}")
+
+
 class Fail(Exception):
     pass
 
@@ -341,18 +390,20 @@ def phase_kernels(torch, K, results):
             args = inputs(name, rows, "lazy")
             timing[rows] = (
                 cuda_ms(torch, lambda: kern(*args), reps=20),
+                device_ms(torch, lambda: kern(*args), 20, KERNEL_SYMBOL[name]),
                 cuda_ms(torch, lambda: plain(*args), reps=3),
             )
         rows = sizes[0]  # the JSON line reports the first (main-path) shape
-        ms, plain_ms = timing[rows]
+        ms, dev_ms, plain_ms = timing[rows]
         bound_ms, bound_by = bound(name, rows)
         results[name] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, rows=rows,
+            max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, rows=rows,
         )
-        for r, (k_ms, p_ms) in timing.items():
+        for r, (k_ms, d_ms, p_ms) in timing.items():
             b_ms, b_by = bound(name, r)
-            log(f"kernel {name}: {r} rows: {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+            log(f"kernel {name}: {r} rows: device {d_ms:.4f} ms a launch, "
+                f"wrapper {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
                 f"bound {b_ms:.6f} ms ({b_by})")
         log(f"kernel {name}: equal to its plain version at rows {sizes} "
             f"on inputs {kinds}, max_abs_err {err}")
@@ -366,6 +417,8 @@ def phase_kernels(torch, K, results):
          (f[:2, 0], f[2, 1].unsqueeze(0))),
         ("fp12_cyclotomic_sq", K.fp12_cyclotomic_sq,
          K.fp12_cyclotomic_sq_plain, (f[64],)),
+        ("fp12_cyclotomic_sq", K.fp12_cyclotomic_sq,
+         K.fp12_cyclotomic_sq_plain, (f[0:64:2],)),
     ]
     for name, kern, plain, args in tower_calls:
         got, want = kern(*args), plain(*args)
@@ -779,7 +832,8 @@ def main(argv=None) -> int:
             line.append(dict(
                 name=name, route="cuda", source=src, replaces=replaces,
                 launches=launches.get(name, 0), max_abs_err=r["max_abs_err"],
-                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=None,
             ))
         log(json.dumps({"kernels": line}))

@@ -25,7 +25,10 @@
 // registers and local memory. The Fp2-level helpers are __noinline__ so
 // the fused Miller kernels build in seconds instead of inlining ~150 Fp2
 // products each; their frames live on the thread stack (local memory,
-// cached in L1/L2), which the CUDA runtime sizes at launch.
+// cached in L1/L2), which the CUDA runtime sizes at launch. The kernels of
+// fp_mul, fp_sq, miller_add_step, fp6_mul and fp12_mul run on this layer;
+// miller_dbl_step and fp12_cyclotomic_sq run one block per row on the
+// warp-cooperative layer of field_coop.cuh, which gives the same integers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,8 +43,13 @@ constexpr int NCOL = 2 * W - 1;  // schoolbook columns
 constexpr int NFOLD = 44;        // FOLD_R rows
 constexpr int F2 = 2 * W, F6 = 6 * W, F12 = 12 * W;
 
-// FOLD_R[r][j] = limbs(2^(12*(32+r)) mod p), j < 32 (the part folds read)
+// FOLD_R[r][j] = limbs(2^(12*(32+r)) mod p), j < 32 (the part folds read):
+// in constant memory for the one-thread kernels, whose lanes read one row
+// entry at a time, and in global memory for the block-per-row kernels of
+// field_coop.cuh, which copy it into shared memory (their lanes read a row
+// at once, and constant memory serialises different addresses)
 __constant__ int FOLD[NFOLD * NL];
+__device__ int FOLD_G[NFOLD * NL];
 
 // --- Fp core -----------------------------------------------------------------
 
@@ -160,18 +168,6 @@ __device__ __noinline__ void mul_small_n(int* out, const int* a, int k, int n) {
   }
 }
 
-// limbs.lincomb of two terms on n elements: norm(ka * a + kb * b), the sum
-// taken in int32 as _k_lincomb does, |ka| + |kb| <= 64
-__device__ __noinline__ void lincomb_n(int* out, const int* a, int ka,
-                                       const int* b, int kb, int n) {
-  for (int e = 0; e < n; ++e) {
-    int t[W + 3];
-    for (int i = 0; i < W; ++i) t[i] = a[e * W + i] * ka + b[e * W + i] * kb;
-    norm(t);
-    for (int i = 0; i < W; ++i) out[e * W + i] = t[i];
-  }
-}
-
 __device__ __forceinline__ void copy_n(int* out, const int* a, int n) {
   for (int i = 0; i < n * W; ++i) out[i] = a[i];
 }
@@ -275,23 +271,6 @@ __device__ __noinline__ void fp6_mul_by_v(int* out, const int* a) {
   copy_n(out, r, 6);
 }
 
-// tower.fp12_sq
-__device__ __noinline__ void fp12_sq(int* out, const int* a) {
-  const int *a0 = a, *a1 = a + F6;
-  int t[F6], x[F6], y[F6], m[F6];
-  int r[F12];
-  fp6_mul(t, a0, a1);
-  add_n(x, a0, a1, 6);
-  fp6_mul_by_v(y, a1);
-  add_n(y, a0, y, 6);
-  fp6_mul(m, x, y);
-  sub_n(m, m, t, 6);
-  fp6_mul_by_v(x, t);
-  sub_n(r, m, x, 6);
-  add_n(r + F6, t, t, 6);
-  copy_n(out, r, 12);
-}
-
 // tower.fp12_mul (_k12_mul): Karatsuba over three Fp6 products
 __device__ __noinline__ void fp12_mul(int* out, const int* a, const int* b) {
   const int *a0 = a, *a1 = a + F6;
@@ -309,52 +288,6 @@ __device__ __noinline__ void fp12_mul(int* out, const int* a, const int* b) {
   // c0 = t0 + v t1
   fp6_mul_by_v(y, t1);
   add_n(r, t0, y, 6);
-  copy_n(out, r, 12);
-}
-
-// tower.fp12_cyclotomic_sq (_k12_cyclo_sq): Granger-Scott squaring, valid
-// in the cyclotomic subgroup. Nine Fp2 squares, then the six combines
-// 3 t -+ 2 x, each one normalization (lincomb_n).
-__device__ __noinline__ void fp12_cyclo_sq(int* out, const int* a) {
-  // x_ij is slot (i, j) of the (2, 3) Fp2 grid
-  const int *x00 = a, *x01 = a + F2, *x02 = a + 2 * F2;
-  const int *x10 = a + 3 * F2, *x11 = a + 4 * F2, *x12 = a + 5 * F2;
-  int sq[9 * F2], s[F2];
-  int r[F12];
-  int *t0 = sq, *t1 = sq + F2, *t2 = sq + 2 * F2, *t3 = sq + 3 * F2;
-  int *t4 = sq + 4 * F2, *t5 = sq + 5 * F2;
-  int *t6 = sq + 6 * F2, *t7 = sq + 7 * F2, *t8 = sq + 8 * F2;
-  fp2_sq(t0, x11);
-  fp2_sq(t1, x00);
-  fp2_sq(t2, x02);
-  fp2_sq(t3, x10);
-  fp2_sq(t4, x12);
-  fp2_sq(t5, x01);
-  add_n(s, x11, x00, 2);
-  fp2_sq(t6, s);
-  add_n(s, x02, x10, 2);
-  fp2_sq(t7, s);
-  add_n(s, x12, x01, 2);
-  fp2_sq(t8, s);
-  sub_n(t6, t6, t0, 2);               // t6 = 2 x11 x00
-  sub_n(t6, t6, t1, 2);
-  sub_n(t7, t7, t2, 2);               // t7 = 2 x02 x10
-  sub_n(t7, t7, t3, 2);
-  sub_n(t8, t8, t4, 2);               // t8 = 2 xi x12 x01
-  sub_n(t8, t8, t5, 2);
-  fp2_mul_by_xi(t8, t8);
-  fp2_mul_by_xi(t0, t0);              // t0 = x00^2 + xi x11^2
-  add_n(t0, t0, t1, 2);
-  fp2_mul_by_xi(t2, t2);
-  add_n(t2, t2, t3, 2);
-  fp2_mul_by_xi(t4, t4);
-  add_n(t4, t4, t5, 2);
-  lincomb_n(r, t0, 3, x00, -2, 2);
-  lincomb_n(r + F2, t2, 3, x01, -2, 2);
-  lincomb_n(r + 2 * F2, t4, 3, x02, -2, 2);
-  lincomb_n(r + 3 * F2, t8, 3, x10, 2, 2);
-  lincomb_n(r + 4 * F2, t6, 3, x11, 2, 2);
-  lincomb_n(r + 5 * F2, t7, 3, x12, 2, 2);
   copy_n(out, r, 12);
 }
 
@@ -406,32 +339,6 @@ __device__ __noinline__ void mul_by_line(int* out, const int* f, const int* line
   sub_n(out + F6, s, t1, 6);
 }
 
-// pairing._jac_double: dbl-2009-l, t = [x | y | z] (Fp2 each)
-__device__ __noinline__ void jac_double(int* out, const int* t) {
-  const int *x = t, *y = t + F2, *z = t + 2 * F2;
-  int a[F2], b[F2], c[F2], d[F2], e[F2], f[F2], u[F2], v[F2];
-  int r[F6];
-  fp2_sq(a, x);
-  fp2_sq(b, y);
-  fp2_sq(c, b);
-  add_n(u, x, b, 2);
-  fp2_sq(u, u);
-  sub_n(u, u, a, 2);
-  sub_n(u, u, c, 2);
-  mul_small_n(d, u, 2, 2);
-  mul_small_n(e, a, 3, 2);
-  fp2_sq(f, e);
-  mul_small_n(u, d, 2, 2);
-  sub_n(r, f, u, 2);                  // x3
-  sub_n(u, d, r, 2);
-  fp2_mul(u, e, u);
-  mul_small_n(v, c, 8, 2);
-  sub_n(r + F2, u, v, 2);             // y3
-  mul_small_n(u, y, 2, 2);
-  fp2_mul(r + 2 * F2, u, z);          // z3
-  copy_n(out, r, 6);
-}
-
 // pairing._jac_madd: madd-2007-bl, q = [xq | yq]
 __device__ __noinline__ void jac_madd(int* out, const int* t, const int* q) {
   const int *x1 = t, *y1 = t + F2, *z1 = t + 2 * F2;
@@ -466,28 +373,6 @@ __device__ __noinline__ void jac_madd(int* out, const int* t, const int* q) {
   copy_n(out, r, 6);
 }
 
-// pairing._dbl_step: 2T and the tangent line at T evaluated at P
-__device__ __noinline__ void dbl_step(int* t_out, int* line, const int* t,
-                                      const int* xp, const int* yp) {
-  const int *x = t, *y = t + F2, *z = t + 2 * F2;
-  int x2[F2], y2[F2], z2[F2], x3[F2], z3[F2], u[F2], v[F2];
-  fp2_sq(x2, x);
-  fp2_sq(y2, y);
-  fp2_sq(z2, z);
-  fp2_mul(x3, x2, x);
-  fp2_mul(z3, z2, z);
-  mul_small_n(u, x3, 3, 2);
-  mul_small_n(v, y2, 2, 2);
-  sub_n(line, u, v, 2);               // c0
-  fp2_mul(u, x2, z2);
-  mul_small_n(u, u, -3, 2);
-  fp2_mul_fp(line + F2, u, xp);       // cv
-  fp2_mul(u, y, z3);
-  mul_small_n(u, u, 2, 2);
-  fp2_mul_fp(line + 2 * F2, u, yp);   // cvw
-  jac_double(t_out, t);
-}
-
 // pairing._add_step: T + Q and the chord line through T, Q evaluated at P
 __device__ __noinline__ void add_step(int* t_out, int* line, const int* t,
                                       const int* q, const int* xp,
@@ -519,5 +404,6 @@ extern "C" int lh_init(const int* fold_r) {
   for (int r = 0; r < lh::NFOLD; ++r)
     for (int j = 0; j < lh::NL; ++j) buf[r * lh::NL + j] = fold_r[r * lh::W + j];
   cudaMemcpyToSymbol(lh::FOLD, buf, sizeof(buf));
+  cudaMemcpyToSymbol(lh::FOLD_G, buf, sizeof(buf));
   return (int)cudaGetLastError();
 }

@@ -6,39 +6,214 @@
 // evaluated at P, f^2 (doubling only) and the sparse mul_by_line update,
 // bit-identical to the op composition in gpu/pairing.py.
 //
-// What bounds it: operations, and on this design latency. A doubling step
-// is ~60 Fp2 products (~700k int32 multiply-adds) per row against ~3.4 KB
-// of traffic, so the bound is the int32 rate; but one thread carries a
-// whole row: a full Fp12 (1.7 KB) plus temporaries spill to local memory,
-// and at the main path's 5 to 1025 pairs only 1 to 17 blocks of 64 threads
-// run, a few dozen warps on 132 SMs. The design is the simple one (one
-// thread per row, Fp2-level helpers not inlined so the build takes seconds);
-// spreading a row's Fp2 products over a warp is later work.
-#include "field.cuh"
+// What bounds it: operations, and at the main path's 65 to 1025 rows the
+// latency of one row's chain. A doubling step is ~60 Fp2 products (~700k
+// int32 multiply-adds) per row against ~3.4 KB of traffic, so the bound is
+// the int32 rate.
+//
+// miller_dbl_kernel: ONE BLOCK PER ROW (field_coop.cuh). The row's state
+// (f, T, P, the line, every intermediate) sits in shared memory, ~41 KB;
+// each Fp2 product is one warp with its lanes across limbs and columns, and
+// the step's ~50 Fp2 products run as seven phases of independent tasks
+// (Fp2 products or short linear chains) spread over the block's 16 warps,
+// the block synced between phases. The critical path is five products
+// deep: T^2 -> x^3, z^3 -> y z^3 -> the line's cvw -> mul_by_line, with
+// f^2 (12 products) beside the first level.
+//
+// miller_add_kernel: still the simple design (one thread per row, Fp2
+// helpers not inlined, frames on the local stack); it runs 5 times a
+// verify against the doubling step's 63.
+#include "field_coop.cuh"
 
 namespace {
 
 constexpr int THREADS = 64;
 
-__global__ void miller_dbl_kernel(int* __restrict__ f_out, int* __restrict__ t_out,
-                                  const int* __restrict__ f, const int* __restrict__ t,
-                                  const int* __restrict__ xp, const int* __restrict__ yp,
-                                  int n) {
-  int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  int F[lh::F12], T[lh::F6], X[lh::W], Y[lh::W], line[lh::F6];
-  for (int i = 0; i < lh::F12; ++i) F[i] = f[row * lh::F12 + i];
-  for (int i = 0; i < lh::F6; ++i) T[i] = t[row * lh::F6 + i];
-  for (int i = 0; i < lh::W; ++i) {
-    X[i] = xp[row * lh::W + i];
-    Y[i] = yp[row * lh::W + i];
+using lh::F12;
+using lh::F2;
+using lh::F6;
+using lh::W;
+using lh::coop::L2;
+using lh::coop::load2;
+using lh::coop::store2;
+
+constexpr int NW = 16;  // warps per block: phase 1's 16 Fp2 products at once
+
+// One row of the doubling step in shared memory. f's Fp2 slot (h, k) is
+// f + (3h + k) F2; the f^2 of phase 3 overwrites f.
+struct DblRow {
+  int f[F12], t[F6], xp[W], yp[W];
+  int x6[F6], y6[F6];       // f0 + f1, f0 + v f1
+  int x2[F2], y2[F2], z2[F2];
+  int fa[6 * F2], fb[6 * F2];  // fp6_mul products of f0 f1 and of x6 y6
+  int x3[F2], z3[F2], xz[F2], c[F2], uj[F2], fj[F2];
+  int tt[F6], mm[F6];       // f0 f1, x6 y6
+  int yz3[F2], c0[F2], cv[F2], cvw[F2];
+  int p[6 * F2], q[3 * F2], s[6 * F2];  // mul_by_line's products
+  int table[lh::NFOLD * lh::NL];
+  int pad[NW][lh::coop::PAD], tmp[NW][W], opa[NW][F2], opb[NW][F2];
+};
+
+// pairing._dbl_step + tower.fp12_sq + pairing.mul_by_line, in field.cuh's
+// order (jac_double's a = x^2 and b = y^2 are the step's x2, y2)
+__global__ void __launch_bounds__(NW * 32)
+miller_dbl_kernel(int* __restrict__ f_out, int* __restrict__ t_out,
+                  const int* __restrict__ f, const int* __restrict__ t,
+                  const int* __restrict__ xp, const int* __restrict__ yp) {
+  __shared__ DblRow s;
+  const int row = blockIdx.x, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < F12; i += blockDim.x) s.f[i] = f[row * F12 + i];
+  for (int i = threadIdx.x; i < F6; i += blockDim.x) s.t[i] = t[row * F6 + i];
+  for (int i = threadIdx.x; i < W; i += blockDim.x) {
+    s.xp[i] = xp[row * W + i];
+    s.yp[i] = yp[row * W + i];
   }
-  int T2[lh::F6];
-  lh::dbl_step(T2, line, T, X, Y);
-  lh::fp12_sq(F, F);
-  lh::mul_by_line(F, F, line);
-  for (int i = 0; i < lh::F12; ++i) f_out[row * lh::F12 + i] = F[i];
-  for (int i = 0; i < lh::F6; ++i) t_out[row * lh::F6 + i] = T2[i];
+  lh::coop::init_block(s.table, &s.pad[0][0], NW);
+  __syncthreads();
+  const lh::coop::Warp w{s.table, s.pad[warp], s.tmp[warp], s.opa[warp], s.opb[warp]};
+  int* fo = f_out + row * F12;
+  int* to = t_out + row * F6;
+  const int *x = s.t, *y = s.t + F2, *z = s.t + 2 * F2;
+  const int *f0 = s.f, *f1 = s.f + F6;
+
+  // phase 0: x6 = f0 + f1, y6 = f0 + v f1 (v f1 = (xi f1_2, f1_0, f1_1))
+  for (int k = warp; k < 6; k += NW) {
+    if (k < 3) {
+      store2(s.x6 + k * F2, w.add2(load2(f0 + k * F2), load2(f1 + k * F2)));
+    } else {
+      int j = k - 3;
+      L2 v = j == 0 ? w.xi2(load2(f1 + 2 * F2)) : load2(f1 + (j - 1) * F2);
+      store2(s.y6 + j * F2, w.add2(load2(f0 + j * F2), v));
+    }
+  }
+  __syncthreads();
+
+  // phase 1: x^2, y^2, z^2, 2T's z3 = 2y z; the twelve Fp2 products of
+  // fp12_sq's fp6_mul(f0, f1) and fp6_mul(x6, y6)
+  for (int k = warp; k < 16; k += NW) {
+    switch (k) {
+      case 0: store2(s.x2, w.fp2_sq(x)); break;
+      case 1: store2(s.y2, w.fp2_sq(y)); break;
+      case 2: store2(s.z2, w.fp2_sq(z)); break;
+      case 3:
+        store2(w.opa, w.mul_small2(load2(y), 2));
+        store2(to + 2 * F2, w.fp2_mul(w.opa, z));
+        break;
+      default: {
+        int j = (k - 4) % 6;
+        if (k < 10) store2(s.fa + j * F2, w.fp6_mul_product(j, f0, f1));
+        else store2(s.fb + j * F2, w.fp6_mul_product(j, s.x6, s.y6));
+      }
+    }
+  }
+  __syncthreads();
+
+  // phase 2: x^3, z^3, x^2 z^2; jac_double's c = b^2, (x + b)^2, (3a)^2; the
+  // two fp6 products' combines
+  for (int k = warp; k < 12; k += NW) {
+    switch (k) {
+      case 0: store2(s.x3, w.fp2_mul(s.x2, x)); break;
+      case 1: store2(s.z3, w.fp2_mul(s.z2, z)); break;
+      case 2: store2(s.xz, w.fp2_mul(s.x2, s.z2)); break;
+      case 3: store2(s.c, w.fp2_sq(s.y2)); break;
+      case 4:
+        store2(w.opa, w.add2(load2(x), load2(s.y2)));
+        store2(s.uj, w.fp2_sq(w.opa));
+        break;
+      case 5:
+        store2(w.opa, w.mul_small2(load2(s.x2), 3));
+        store2(s.fj, w.fp2_sq(w.opa));
+        break;
+      default: {
+        int j = (k - 6) % 3;
+        if (k < 9) store2(s.tt + j * F2, w.fp6_mul_combine(j, s.fa));
+        else store2(s.mm + j * F2, w.fp6_mul_combine(j, s.fb));
+      }
+    }
+  }
+  __syncthreads();
+
+  // phase 3: y z^3; the line's c0 and cv; 2T's x3 and y3; f^2 = (mm - tt -
+  // v tt, 2 tt) over f
+  for (int k = warp; k < 8; k += NW) {
+    switch (k) {
+      case 0: store2(s.yz3, w.fp2_mul(y, s.z3)); break;
+      case 1:
+      case 2: {
+        int c = k - 1;
+        lh::coop::store(w.opa, w.mul_small(lh::coop::load(s.xz + c * W), -3));
+        lh::coop::store(s.cv + c * W, w.fp_mul(w.opa, s.xp));
+        break;
+      }
+      case 3: {
+        L2 d = w.mul_small2(w.sub2(w.sub2(load2(s.uj), load2(s.x2)), load2(s.c)), 2);
+        L2 x3 = w.sub2(load2(s.fj), w.mul_small2(d, 2));
+        store2(to, x3);
+        store2(w.opa, w.mul_small2(load2(s.x2), 3));
+        store2(w.opb, w.sub2(d, x3));
+        L2 u = w.fp2_mul(w.opa, w.opb);
+        store2(to + F2, w.sub2(u, w.mul_small2(load2(s.c), 8)));
+        break;
+      }
+      case 4:
+        store2(s.c0, w.sub2(w.mul_small2(load2(s.x3), 3),
+                            w.mul_small2(load2(s.y2), 2)));
+        break;
+      default: {
+        int j = k - 5;
+        L2 tj = load2(s.tt + j * F2);
+        L2 vt = j == 0 ? w.xi2(load2(s.tt + 2 * F2)) : load2(s.tt + (j - 1) * F2);
+        store2(s.f + j * F2, w.sub2(w.sub2(load2(s.mm + j * F2), tj), vt));
+        store2(s.f + F6 + j * F2, w.add2(tj, tj));
+      }
+    }
+  }
+  __syncthreads();
+
+  // phase 4: the line's cvw; mul_by_line's t0 = fp6_mul_s2(f0, c0, cv):
+  // f0_0 c0, f0_2 cv, f0_1 c0, f0_0 cv, f0_2 c0, f0_1 cv
+  for (int k = warp; k < 8; k += NW) {
+    if (k < 2) {
+      lh::coop::store(w.opa, w.mul_small(lh::coop::load(s.yz3 + k * W), 2));
+      lh::coop::store(s.cvw + k * W, w.fp_mul(w.opa, s.yp));
+    } else {
+      int j = k - 2, slot = 2 * j % 3;  // 0, 2, 1, 0, 2, 1
+      store2(s.p + j * F2, w.fp2_mul(f0 + slot * F2, j % 2 ? s.cv : s.c0));
+    }
+  }
+  __syncthreads();
+
+  // phase 5: t1 = fp6_mul_s1(f1, cvw): f1_2 cvw, f1_0 cvw, f1_1 cvw; and
+  // s = fp6_mul_s2(f0 + f1, c0, cv + cvw)
+  for (int k = warp; k < 9; k += NW) {
+    if (k < 3) {
+      store2(s.q + k * F2, w.fp2_mul(f1 + (k + 2) % 3 * F2, s.cvw));
+    } else {
+      int j = k - 3, slot = 2 * j % 3;
+      store2(w.opa, w.add2(load2(f0 + slot * F2), load2(f1 + slot * F2)));
+      if (j % 2) store2(w.opb, w.add2(load2(s.cv), load2(s.cvw)));
+      store2(s.s + j * F2, w.fp2_mul(w.opa, j % 2 ? w.opb : s.c0));
+    }
+  }
+  __syncthreads();
+
+  // phase 6: f' = (t0 + v t1, s - t0 - t1), with t0_k = p_2k + p_2k+1 (xi on
+  // p_1), t1 = (xi q0, q1, q2), s_k likewise from s
+  for (int k = warp; k < 6; k += NW) {
+    int j = k % 3;
+    L2 a = load2(s.p + 2 * j * F2), b = load2(s.p + (2 * j + 1) * F2);
+    L2 t0 = w.add2(a, j == 0 ? w.xi2(b) : b);
+    if (k < 3) {
+      // (v t1)_j = xi q2, xi q0, q1
+      L2 q = load2(s.q + (j + 2) % 3 * F2);
+      store2(fo + j * F2, w.add2(t0, j == 2 ? q : w.xi2(q)));
+    } else {
+      L2 sa = load2(s.s + 2 * j * F2), sb = load2(s.s + (2 * j + 1) * F2);
+      L2 sj = w.add2(sa, j == 0 ? w.xi2(sb) : sb);
+      L2 q = load2(s.q + j * F2);
+      store2(fo + F6 + j * F2, w.sub2(w.sub2(sj, t0), j == 0 ? w.xi2(q) : q));
+    }
+  }
 }
 
 __global__ void miller_add_kernel(int* __restrict__ f_out, int* __restrict__ t_out,
@@ -66,10 +241,9 @@ __global__ void miller_add_kernel(int* __restrict__ f_out, int* __restrict__ t_o
 
 extern "C" int lh_miller_dbl(void* f_out, void* t_out, const void* f, const void* t,
                              const void* xp, const void* yp, int n, void* stream) {
-  int blocks = (n + THREADS - 1) / THREADS;
-  miller_dbl_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  miller_dbl_kernel<<<n, NW * 32, 0, (cudaStream_t)stream>>>(
       (int*)f_out, (int*)t_out, (const int*)f, (const int*)t, (const int*)xp,
-      (const int*)yp, n);
+      (const int*)yp);
   return (int)cudaGetLastError();
 }
 

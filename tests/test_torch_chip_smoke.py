@@ -1,0 +1,83 @@
+"""chip_smoke.py's host-side helpers on the CPU: the kernel metadata it
+reports, the profiler keys it reads each kernel's device time from, the
+launch counts it holds every verify to, and its summary of nvcc's ptxas
+report. (The script itself needs a card: `python3 chip_smoke.py`.)"""
+
+import importlib.util
+import re
+from pathlib import Path
+
+import pytest
+
+from lighthouse_tpu_torch.crypto.bls.gpu import kernels as K
+from lighthouse_tpu_torch.crypto.bls.gpu import pairing as TP
+
+ROOT = Path(__file__).resolve().parents[1]
+_spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+CS = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(CS)
+
+
+def test_every_kernel_has_its_metadata():
+    assert set(CS.KERNEL_META) == set(K.LAUNCHES)
+    assert set(CS.KERNEL_SYMBOL) == set(K.LAUNCHES)
+    assert set(CS.ROW_BYTES) == set(K.LAUNCHES)
+    assert set(CS._op_counts()) == set(K.LAUNCHES)
+
+
+@pytest.mark.parametrize("name", sorted(K.LAUNCHES))
+def test_profiler_key_names_exactly_its_kernel(name):
+    """Among the demangled names of all seven kernels, a wrapper's symbol
+    matches its own only (fp_mul_kernel is not fp6_mul_kernel or
+    fp12_mul_kernel), and its source defines a kernel of that name."""
+    keys = {n: "(anonymous namespace)::%s(int*, int const*, int)" % sym
+            for n, sym in CS.KERNEL_SYMBOL.items()}
+    symbol = CS.KERNEL_SYMBOL[name]
+    assert [n for n, key in keys.items() if CS.is_kernel_key(symbol, key)] == [name]
+    assert CS.is_kernel_key(symbol, symbol)
+    src = (ROOT / CS.KERNEL_META[name][0]).read_text()
+    assert re.search(r"__global__[^;{]*\b%s\(" % symbol, src)
+
+
+@pytest.mark.parametrize("pairs, fp12_mul", [(65, 42), (33, 41), (257, 44)])
+def test_expected_launches_of_one_verify(pairs, fp12_mul):
+    """63 doubling and 5 addition steps (|x|'s bits after the leading one,
+    and its one-bits), 5 x 63 + 1 cyclotomic squares, one fp6_mul, and 35
+    fp12_mul plus ceil(log2(pairs)): the gossip batch's 65 pairs, the
+    aggregate batch's 33, the gossip batch padded to 256 sets."""
+    assert CS.expected_launches(TP, pairs) == {
+        "miller_dbl_step": 63,
+        "miller_add_step": 5,
+        "fp12_cyclotomic_sq": 316,
+        "fp12_mul": fp12_mul,
+        "fp6_mul": 1,
+    }
+
+
+PTXAS = """\
+ptxas info    : 5632 bytes gmem
+ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__1c08517f_16_tower_kernels_cu_947dd55a20fp12_cyclo_sq_kernelEPiPKii' for 'sm_90a'
+ptxas info    : Function properties for _ZN49_GLOBAL__N__1c08517f_16_tower_kernels_cu_947dd55a20fp12_cyclo_sq_kernelEPiPKii
+    72 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers, 72 bytes cumulative stack size, 19876 bytes smem
+ptxas info    : Compile time = 122.732 ms
+ptxas info    : Function properties for _ZNK2lh4coop4Warp6fp2_sqEPKi
+    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__1c08517f_16_tower_kernels_cu_947dd55a15fp12_mul_kernelEPiPKiS2_i' for 'sm_90a'
+ptxas info    : Function properties for _ZN49_GLOBAL__N__1c08517f_16_tower_kernels_cu_947dd55a15fp12_mul_kernelEPiPKiS2_i
+    12224 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 0 barriers, 12224 bytes cumulative stack size
+"""
+
+
+def test_ptxas_summary_names_each_kernel_with_its_resources():
+    """One line per entry function (its name unmangled out of the
+    anonymous namespace, registers, stack, shared memory), then the most
+    spill bytes of any function of the library."""
+    assert CS.ptxas_summary(PTXAS) == [
+        "fp12_cyclo_sq_kernel: Used 32 registers, used 1 barriers, 72 bytes "
+        "cumulative stack size, 19876 bytes smem",
+        "fp12_mul_kernel: Used 168 registers, used 0 barriers, 12224 bytes "
+        "cumulative stack size",
+        "most spill bytes of any function: 4",
+    ]

@@ -109,10 +109,16 @@ def test_fp12_prod_bitexact():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["lazy", "maximal"])
 @pytest.mark.parametrize("rows", [65, 1025])
-def test_miller_step_kernels_on_card_equal_plain(rows):
+def test_miller_step_kernels_on_card_equal_plain(rows, kind):
+    """Both step kernels equal their plain versions on the card, on seeded
+    lazy limbs (first row all-maximal) and with every limb of every operand
+    at 2^12."""
     dev = need_card()
     x = {k: torch.as_tensor(v).to(dev) for k, v in _step_inputs(74, rows).items()}
+    if kind == "maximal":
+        x = {k: torch.full_like(v, 1 << 12) for k, v in x.items()}
     got = K.miller_dbl_step(x["f"], x["t"], x["xp"], x["yp"])
     want = K.miller_dbl_step_plain(x["f"], x["t"], x["xp"], x["yp"])
     assert all(torch.equal(g, w) for g, w in zip(got, want))

@@ -14,7 +14,7 @@ from lighthouse_tpu_torch.crypto.bls.constants import P
 from lighthouse_tpu_torch.crypto.bls.gpu import kernels as K
 from lighthouse_tpu_torch.crypto.bls.gpu import tower as T
 
-from torch_port_util import assert_same, lazy
+from torch_port_util import assert_same, lazy, need_card
 
 FP2 = {
     "fp2_mul": (JT.fp2_mul, T.fp2_mul, 2),
@@ -178,6 +178,26 @@ def test_tower_plain_versions_bitexact_with_jax_all_maximal(name):
     rng = np.random.default_rng(48)
     args = [lazy(rng, (3,) + tail, maximal_rows=1) for _ in range(arity)]
     assert_same(jf, plain, *args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["lazy", "maximal"])
+@pytest.mark.parametrize("rows", [1, 1025])
+def test_fp12_cyclotomic_sq_kernel_on_card_equals_plain(rows, kind):
+    """The block-per-row cyclotomic square equals its plain version on the
+    card at the final exponentiation's one row and at 1025 rows, on seeded
+    lazy limbs and with every limb at 2^12; the launch is counted."""
+    dev = need_card()
+    rng = np.random.default_rng(49)
+    a = torch.as_tensor(lazy(rng, (rows, 2, 3, 2))).to(dev)
+    if kind == "maximal":
+        a = torch.full_like(a, 1 << 12)
+    before = K.LAUNCHES["fp12_cyclotomic_sq"]
+    got = K.fp12_cyclotomic_sq(a)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fp12_cyclotomic_sq"] == before + 1
+    assert torch.equal(got, K.fp12_cyclotomic_sq_plain(a))
+    assert torch.equal(got.cpu(), K.fp12_cyclotomic_sq_plain(a.cpu()))
 
 
 def test_c_entry_points_match_the_bindings():
