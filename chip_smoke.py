@@ -9,16 +9,18 @@ Phases (each one fails the run with a nonzero exit):
   build      compile the CUDA kernels from lighthouse_tpu_torch/csrc (one
              nvcc per source, started together) and load them
   kernels    each kernel against its plain PyTorch version on the card, at
-             the main path's shapes (fp_mul/fp_sq at 1024 and 1000 rows,
-             the Miller steps at 65 and 1025 pairs, the tower kernels at
-             the final exponentiation's one row, fp6_mul also at 2 rows,
-             fp12_mul also at the halving product's 64 and 32 rows, and
-             all three at a ragged 1025), on seeded lazy limbs, on every
-             operand's limbs at the maximum 2^12, and on a mix of the two:
-             torch.equal on int32; strided and broadcast tower operands
-             too; times: the wrapper's (events around calls, host work
-             included) and the kernel's own device time per launch
-             (torch.profiler)
+             the main path's shapes (KERNEL_ROWS: fp_sq/fp_mul at the
+             inversions' one row and at 1024 and 1000 rows, fp_sq also at
+             2048, the Miller steps at 65 and 1025 pairs, the tower
+             kernels at the final exponentiation's one row, fp6_mul also
+             at 2 rows, fp12_mul also at the halving product's 64 and 32
+             rows, and all three at a ragged 1025), on seeded lazy limbs,
+             on every operand's limbs at the maximum 2^12, and on a mix
+             of the two: torch.equal on int32, and at the first shape
+             against the plain version run on the CPU; strided and
+             broadcast tower operands too; times: the wrapper's (events
+             around calls, host work included) and the kernel's own
+             device time per launch (torch.profiler)
   parity     a 4-set batch through the five stages on the card and on the
              CPU (plain versions): every stage output bit-identical; the
              same for _stage_agg_prep and for the pubkey rows that
@@ -45,6 +47,8 @@ and read just after it; every kernel must have launched, and each
 pairing kernel exactly as often as the code implies (`expected_launches`:
 per verify 63 doubling and 5 addition steps, 316 cyclotomic squares, one
 fp6_mul, and 35 fp12_mul plus one per halving of the Miller product).
+The same run's launches by row count (`row_tally`, taken around the
+kernels' launch function) are logged.
 The script prints the card (nvidia-smi name and power limit), per-stage
 ms and sets/s, one JSON line with every kernel's numbers, and as its last
 line {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -54,6 +58,7 @@ nonzero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -100,17 +105,35 @@ KERNEL_SYMBOL = {
 }
 
 
+# rows the kernels phase runs each kernel at; the first is the main path's
+# commonest shape, the one the JSON line reports (one row for fp_sq and
+# fp_mul: 1900 of a gossip verify's 2725 fp_sq launches and 547 of its
+# 1204 fp_mul launches, the Fermat inversions' chains); fp_sq also at the
+# aggregate batch's largest, 2048 rows
+KERNEL_ROWS = {
+    "fp_mul": [1, 1024, 1000],
+    "fp_sq": [1, 1024, 1000, 2048],
+    "miller_dbl_step": [65, 1025],
+    "miller_add_step": [65, 1025],
+    "fp6_mul": [1, 2, 1025],
+    "fp12_mul": [1, 64, 32, 1025],
+    "fp12_cyclotomic_sq": [1, 1025],
+}
+
+
 def log(*a):
     print(*a, flush=True)
 
 
-# --- operation and byte counts for the bound (from field.cuh's loops) -----------
+# --- operation and byte counts for the bound (the one-thread loops) ------------
 
 
 def _op_counts() -> dict:
-    """int32 operations per row of each kernel, counted from the loops of
-    field.cuh (a multiply-add is 2; carries 3 per limb per round; loads,
-    stores and index arithmetic not counted)."""
+    """int32 operations per row of each kernel's function, counted from the
+    one-thread loops of field.cuh's transcription (a multiply-add is 2;
+    carries 3 per limb per round; loads, stores and index arithmetic not
+    counted); the square counts each cross product once, the least work
+    for it, whatever its kernel does."""
     def carry3(w):
         return 3 * (3 * w + 3)
 
@@ -122,7 +145,7 @@ def _op_counts() -> dict:
     lincomb = 3 * 35 + carry3(35) + fold(38)  # a*ka + b*kb, normalized
     add1 = 35 + fold(35)
     mul_cols = 2 * 35 * 35
-    sq_cols = 2 * 35 + 35 * 34 + 35
+    sq_cols = 2 * 35 + 35 * 34 + 35  # a_i^2, then 2 a_i a_j for i < j
     fp_mul = mul_cols + reduce
     fp_sq = sq_cols + reduce
     a2 = 2 * add1
@@ -184,6 +207,33 @@ def expected_launches(TP, pairs: int) -> dict:
         + (pairs - 1).bit_length(),
         "fp6_mul": 1,
     }
+
+
+@contextlib.contextmanager
+def row_tally(K):
+    """Within the block, tally each kernel's launches by row count: wraps
+    the kernels module's `_launch` (which every wrapper calls) and yields
+    {kernel: {rows: launches}}, filled as launches happen."""
+    tally = {k: {} for k in K.LAUNCHES}
+    launch = K._launch
+
+    def counted(what, lib, fn, outs, ins, n):
+        launch(what, lib, fn, outs, ins, n)
+        if n:
+            tally[what][n] = tally[what].get(n, 0) + 1
+
+    K._launch = counted
+    try:
+        yield tally
+    finally:
+        K._launch = launch
+
+
+def launch_rows(tally) -> dict:
+    """A row tally as {kernel: {rows: launches}} in ascending rows, the
+    row counts as strings (JSON keys)."""
+    return {k: {str(r): n for r, n in sorted(c.items())}
+            for k, c in tally.items()}
 
 
 def check_launches(label, counts, want):
@@ -323,15 +373,6 @@ def phase_kernels(torch, K, results):
     # the first operands maximal against seeded lazy ones
     kinds = ("lazy", "maximal", "mixed")
 
-    cases = {
-        "fp_mul": [1024, 1000],
-        "fp_sq": [1024, 1000],
-        "miller_dbl_step": [65, 1025],
-        "miller_add_step": [65, 1025],
-        "fp6_mul": [1, 2, 1025],
-        "fp12_mul": [1, 64, 32, 1025],
-        "fp12_cyclotomic_sq": [1, 1025],
-    }
     tower_slots = {"fp6_mul": (3, 2), "fp12_mul": (2, 3, 2),
                    "fp12_cyclotomic_sq": (2, 3, 2)}
 
@@ -363,7 +404,7 @@ def phase_kernels(torch, K, results):
         "fp12_mul": (K.fp12_mul, K.fp12_mul_plain),
         "fp12_cyclotomic_sq": (K.fp12_cyclotomic_sq, K.fp12_cyclotomic_sq_plain),
     }
-    for name, sizes in cases.items():
+    for name, sizes in KERNEL_ROWS.items():
         err = 0
         kern, plain = pairs[name]
         for rows in sizes:
@@ -378,8 +419,7 @@ def phase_kernels(torch, K, results):
                     err = max(err, int((g.long() - w.long()).abs().max()))
                     need(torch.equal(g, w), f"{name} rows={rows} {kind}: "
                          "kernel differs from its plain version")
-                if rows == sizes[0] and kind == "lazy" and name not in (
-                        "fp_mul", "fp_sq"):
+                if rows == sizes[0] and kind == "lazy":
                     # and against the plain version on the CPU, same inputs
                     cpu = plain(*(x.cpu() for x in args))
                     cpu = cpu if isinstance(cpu, tuple) else (cpu,)
@@ -526,15 +566,18 @@ def run_path(torch, K, TP, B, api, label, sets, forged, pairs, launches, card,
     just before it and read just after), then the forged batch; per-stage
     ms come from one more verify of the same batch under the stage timer."""
     need(api.verify_signature_sets(sets, seed=10), f"{label}: warm-up rejected")
-    K.reset_launches()
-    t0 = time.perf_counter()
-    ok = api.verify_signature_sets(sets, seed=11)
-    secs = time.perf_counter() - t0
-    counts = dict(K.LAUNCHES)
+    with row_tally(K) as tally:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        ok = api.verify_signature_sets(sets, seed=11)
+        secs = time.perf_counter() - t0
+        counts = dict(K.LAUNCHES)
+    rows = launch_rows(tally)
     need(ok, f"{label}: honest batch rejected")
     check_launches(label, counts, expected_launches(TP, pairs))
     for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
+    log(f"{label}: launches by rows {json.dumps(rows)}")
     staged_ok, times, staged_secs, aggregated = _verify_timed(torch, B, sets, seed=12)
     need(staged_ok, f"{label}: staged (timed) verify rejected")
     stages = " ".join(f"{k}={v:.1f}" for k, v in times.items())
@@ -547,7 +590,7 @@ def run_path(torch, K, TP, B, api, label, sets, forged, pairs, launches, card,
     need(not bad, f"{label}: forged batch accepted")
     log(f"{label}: forged False, {time.perf_counter() - t0:.3f} s")
     out = dict(sets=len(sets), seconds=secs, stage_ms=times, aggregated=aggregated,
-               launches=counts)
+               launches=counts, launch_rows=rows)
     if profile:
         out["profile"] = profile_verify(torch, B, sets, label)
     return out

@@ -26,9 +26,10 @@
 // the fused Miller kernels build in seconds instead of inlining ~150 Fp2
 // products each; their frames live on the thread stack (local memory,
 // cached in L1/L2), which the CUDA runtime sizes at launch. The kernels of
-// fp_mul, fp_sq, miller_add_step, fp6_mul and fp12_mul run on this layer;
-// miller_dbl_step and fp12_cyclotomic_sq run one block per row on the
-// warp-cooperative layer of field_coop.cuh, which gives the same integers.
+// fp_mul, miller_add_step and fp6_mul run on this layer; fp_sq (a warp per
+// row) and miller_dbl_step, fp12_mul and fp12_cyclotomic_sq (a block per
+// row) run on the warp-cooperative layer of field_coop.cuh, which gives
+// the same integers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -106,28 +107,9 @@ __device__ __noinline__ void mul_cols(int* cols, const int* a, const int* b) {
   }
 }
 
-// squaring columns with half the partial products; the same integers as
-// mul_cols(a, a) (2 a_i a_j = a_i a_j + a_j a_i)
-__device__ __noinline__ void sq_cols(int* cols, const int* a) {
-  for (int k = 0; k < NCOL; ++k) cols[k] = 0;
-  for (int i = 0; i < W; ++i) {
-    int ai = a[i];
-    cols[2 * i] += ai * ai;
-    int ai2 = 2 * ai;
-    for (int j = i + 1; j < W; ++j) cols[i + j] += ai2 * a[j];
-  }
-}
-
 __device__ __noinline__ void fp_mul(int* out, const int* a, const int* b) {
   int cols[NCOL + 3];
   mul_cols(cols, a, b);
-  reduce(cols);
-  for (int i = 0; i < W; ++i) out[i] = cols[i];
-}
-
-__device__ __noinline__ void fp_sq(int* out, const int* a) {
-  int cols[NCOL + 3];
-  sq_cols(cols, a);
   reduce(cols);
   for (int i = 0; i < W; ++i) out[i] = cols[i];
 }
@@ -227,7 +209,7 @@ __device__ __noinline__ void fp2_mul_fp(int* out, const int* a, const int* s) {
   fp_mul(out + W, a + W, s);
 }
 
-// --- Fp6 / Fp12 (tower.fp6_mul, fp6_mul_by_v, fp12_sq) ----------------------------
+// --- Fp6 (tower.fp6_mul, fp6_mul_by_v) ------------------------------------------
 
 __device__ __noinline__ void fp6_mul(int* out, const int* a, const int* b) {
   const int *a0 = a, *a1 = a + F2, *a2 = a + 2 * F2;
@@ -269,26 +251,6 @@ __device__ __noinline__ void fp6_mul_by_v(int* out, const int* a) {
   copy_n(r + F2, a, 2);
   copy_n(r + 2 * F2, a + F2, 2);
   copy_n(out, r, 6);
-}
-
-// tower.fp12_mul (_k12_mul): Karatsuba over three Fp6 products
-__device__ __noinline__ void fp12_mul(int* out, const int* a, const int* b) {
-  const int *a0 = a, *a1 = a + F6;
-  const int *b0 = b, *b1 = b + F6;
-  int t0[F6], t1[F6], x[F6], y[F6];
-  int r[F12];
-  fp6_mul(t0, a0, b0);
-  fp6_mul(t1, a1, b1);
-  // c1 = (a0+a1)(b0+b1) - t0 - t1
-  add_n(x, a0, a1, 6);
-  add_n(y, b0, b1, 6);
-  fp6_mul(x, x, y);
-  sub_n(x, x, t0, 6);
-  sub_n(r + F6, x, t1, 6);
-  // c0 = t0 + v t1
-  fp6_mul_by_v(y, t1);
-  add_n(r, t0, y, 6);
-  copy_n(out, r, 12);
 }
 
 // --- Miller step pieces (pairing.py) -----------------------------------------

@@ -1,4 +1,6 @@
-// Warp-cooperative BLS12-381 field layer for the block-per-row kernels.
+// Warp-cooperative BLS12-381 field layer: the kernels of fp_sq (a warp
+// per row) and of miller_dbl_step, fp12_mul and fp12_cyclotomic_sq (a block
+// per row) run on it.
 //
 // The same integers as field.cuh, with one warp working on one Fp element
 // instead of one thread. A value in flight lives in the warp's registers,
@@ -121,7 +123,7 @@ __device__ __forceinline__ Limbs cols(const int* a, const int* bpad) {
 
 // The warp's view of its block: the shared FOLD table and its own scratch.
 struct Warp {
-  const int* table;  // FOLD_R, NFOLD x NL, in shared memory
+  const int* table;  // FOLD_R, NFOLD x NL: a shared copy, or FOLD_G itself
   int* pad;          // PAD ints, zero outside [W, 2W)
   int* tmp;          // W ints: a column product's first operand
   int* opa;          // 2 W ints each: Fp2 operands built by the caller
@@ -226,6 +228,13 @@ struct Warp {
     return add2(sub2(sub2(m, t0), t2), t1);
   }
 };
+
+// A warp's own pad buffer zeroed by its lanes, for a kernel that keeps no
+// block-wide state (no block sync needed)
+__device__ __forceinline__ void zero_pad(int* pad) {
+  for (int i = lane(); i < PAD; i += 32) pad[i] = 0;
+  __syncwarp();
+}
 
 // The block's copy of FOLD_R and zeroed pad buffers, before the first phase
 // (the caller syncs the block after).

@@ -13,15 +13,24 @@
 // squares and 35 products in a chain, so a launch costs the latency of
 // one row's schedule.
 //
+// fp12_mul_kernel: ONE BLOCK PER ROW (field_coop.cuh), 18 warps. The row's
+// a, b and every intermediate sit in shared memory (38,320 bytes with the
+// fold table and the per-warp scratch). Four phases, the block synced
+// between them, in field.cuh's fp12_mul/fp6_mul order: the Karatsuba
+// operand sums x6 = a0 + a1, y6 = b0 + b1 (6 warps); the 18 Fp2 products
+// of the three Fp6 products a0 b0, a1 b1, x6 y6 (one warp each); the 9 Fp6
+// combines t0, t1, m; the 6 output slots c0 = t0 + v t1, c1 = m - t0 - t1.
+// The critical path is one Fp2 product and three short add chains.
+//
 // fp12_cyclo_sq_kernel: ONE BLOCK PER ROW (field_coop.cuh), 9 warps. The
 // row sits in shared memory; phase 1 runs the nine Fp2 squares, one warp
 // each (the three of sums add first); phase 2 the six output slots, one
 // warp each: the subs, the xi-multiplies and the adds, then the 3t -+ 2x
 // combine. Two Fp2-square latencies and a launch per square.
 //
-// fp6_mul_kernel, fp12_mul_kernel: still the simple design (one thread per
-// row, the ragged edge masked by the row test, Fp2/Fp6 helpers not inlined,
-// frames on the local stack).
+// fp6_mul_kernel: still the simple design (one thread per row, the ragged
+// edge masked by the row test, Fp2 helpers not inlined, frames on the
+// local stack; field.cuh).
 #include "field_coop.cuh"
 
 namespace {
@@ -41,17 +50,79 @@ __global__ void fp6_mul_kernel(int* __restrict__ out, const int* __restrict__ a,
   for (int i = 0; i < lh::F6; ++i) out[row * lh::F6 + i] = A[i];
 }
 
-__global__ void fp12_mul_kernel(int* __restrict__ out, const int* __restrict__ a,
-                                const int* __restrict__ b, int n) {
-  int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  int A[lh::F12], B[lh::F12];
-  for (int i = 0; i < lh::F12; ++i) {
-    A[i] = a[row * lh::F12 + i];
-    B[i] = b[row * lh::F12 + i];
+constexpr int MUL_NW = 18;  // warps per block: the 18 Fp2 products at once
+
+// One row of fp12_mul in shared memory. a's Fp6 halves are a and a + F6;
+// prod holds the six fp6_mul products (fp6_mul_product order) of a0 b0,
+// then a1 b1, then x6 y6; t their combines t0 = a0 b0, t1 = a1 b1, m = x6 y6.
+struct Fp12MulRow {
+  int a[lh::F12], b[lh::F12], x6[lh::F6], y6[lh::F6];
+  int prod[18 * lh::F2], t[9 * lh::F2];
+  int table[lh::NFOLD * lh::NL];
+  int pad[MUL_NW][lh::coop::PAD], tmp[MUL_NW][lh::W];
+  int opa[MUL_NW][lh::F2], opb[MUL_NW][lh::F2];
+};
+
+// tower.fp12_mul (_k12_mul): Karatsuba over three Fp6 products, in the
+// order of field.cuh's one-thread fp6_mul and kernels.fp12_mul_plain
+__global__ void __launch_bounds__(MUL_NW * 32)
+fp12_mul_kernel(int* __restrict__ out, const int* __restrict__ a,
+                const int* __restrict__ b) {
+  using lh::F2;
+  using lh::F6;
+  using lh::coop::L2;
+  using lh::coop::load2;
+  using lh::coop::store2;
+  __shared__ Fp12MulRow s;
+  const int row = blockIdx.x, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < lh::F12; i += blockDim.x) {
+    s.a[i] = a[row * lh::F12 + i];
+    s.b[i] = b[row * lh::F12 + i];
   }
-  lh::fp12_mul(A, A, B);
-  for (int i = 0; i < lh::F12; ++i) out[row * lh::F12 + i] = A[i];
+  lh::coop::init_block(s.table, &s.pad[0][0], MUL_NW);
+  __syncthreads();
+  const lh::coop::Warp w{s.table, s.pad[warp], s.tmp[warp], s.opa[warp], s.opb[warp]};
+
+  // phase 1: x6 = a0 + a1 (warps 0-2), y6 = b0 + b1 (warps 3-5), Fp2 slot
+  // j each (add_n: one fold of each element's sum)
+  if (warp < 6) {
+    const int j = warp % 3;
+    const int* u = warp < 3 ? s.a : s.b;
+    int* sum = warp < 3 ? s.x6 : s.y6;
+    store2(sum + j * F2, w.add2(load2(u + j * F2), load2(u + F6 + j * F2)));
+  }
+  __syncthreads();
+
+  // phase 2: product j of fp6_mul(A, B), (A, B) = (a0, b0), (a1, b1), (x6, y6)
+  {
+    const int set = warp / 6, j = warp % 6;
+    const int* A = set == 2 ? s.x6 : s.a + set * F6;
+    const int* B = set == 2 ? s.y6 : s.b + set * F6;
+    store2(s.prod + warp * F2, w.fp6_mul_product(j, A, B));
+  }
+  __syncthreads();
+
+  // phase 3: Fp2 slot k of t0, t1, m
+  if (warp < 9) {
+    const int set = warp / 3, k = warp % 3;
+    store2(s.t + warp * F2, w.fp6_mul_combine(k, s.prod + set * 6 * F2));
+  }
+  __syncthreads();
+
+  // phase 4: c0_j = t0_j + (v t1)_j, v t1 = (xi t1_2, t1_0, t1_1) (warps
+  // 0-2); c1_j = (m_j - t0_j) - t1_j (warps 3-5)
+  if (warp < 6) {
+    const int j = warp % 3;
+    const int *t0 = s.t, *t1 = s.t + F6, *m = s.t + 2 * F6;
+    L2 r;
+    if (warp < 3) {
+      L2 vt = j == 0 ? w.xi2(load2(t1 + 2 * F2)) : load2(t1 + (j - 1) * F2);
+      r = w.add2(load2(t0 + j * F2), vt);
+    } else {
+      r = w.sub2(w.sub2(load2(m + j * F2), load2(t0 + j * F2)), load2(t1 + j * F2));
+    }
+    store2(out + row * lh::F12 + warp * F2, r);
+  }
 }
 
 constexpr int CYCLO_NW = 9;  // warps per block: the nine Fp2 squares at once
@@ -126,8 +197,8 @@ extern "C" int lh_fp6_mul(void* out, const void* a, const void* b, int n,
 
 extern "C" int lh_fp12_mul(void* out, const void* a, const void* b, int n,
                            void* stream) {
-  fp12_mul_kernel<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
-      (int*)out, (const int*)a, (const int*)b, n);
+  fp12_mul_kernel<<<n, MUL_NW * 32, 0, (cudaStream_t)stream>>>(
+      (int*)out, (const int*)a, (const int*)b);
   return (int)cudaGetLastError();
 }
 

@@ -39,6 +39,54 @@ def test_profiler_key_names_exactly_its_kernel(name):
     assert re.search(r"__global__[^;{]*\b%s\(" % symbol, src)
 
 
+@pytest.mark.parametrize("name", ["fp_sq", "fp_mul", "fp12_mul"])
+def test_kernels_phase_times_the_main_paths_one_row(name):
+    """The kernels phase runs fp_sq, fp_mul and fp12_mul at one row, the
+    shape of most of their launches (the inversions' and the final
+    exponentiation's chains), and reports it first (the JSON line's
+    shape); each kernel's profiler symbol is a __global__ of its source."""
+    rows = CS.KERNEL_ROWS[name]
+    assert rows[0] == 1 and len(set(rows)) == len(rows)
+    src = (ROOT / CS.KERNEL_META[name][0]).read_text()
+    assert re.search(r"__global__[^;{]*\b%s\(" % CS.KERNEL_SYMBOL[name], src)
+    assert set(CS.KERNEL_ROWS) == set(K.LAUNCHES)
+
+
+def test_launch_rows_tally_by_row_count_and_reset(monkeypatch):
+    """row_tally counts each launch of the kernels' launch function by its
+    row count (a zero-row call launches nothing), launch_rows gives the
+    tally as {kernel: {rows: launches}} in ascending rows, and the launch
+    function is put back when the block ends."""
+    seen = []
+
+    def stub(what, lib, fn, outs, ins, n):
+        seen.append((what, n))
+
+    monkeypatch.setattr(K, "_launch", stub)
+    with CS.row_tally(K) as tally:
+        for n in (1024, 1, 128, 1, 0, 1):
+            K._launch("fp_sq", "fp", "lh_fp_sq", [], [], n)
+    assert K._launch is stub
+    assert len(seen) == 6
+    rows = CS.launch_rows(tally)
+    assert set(rows) == set(K.LAUNCHES)
+    assert list(rows["fp_sq"].items()) == [("1", 3), ("128", 1), ("1024", 1)]
+    assert rows["fp_mul"] == {}
+
+
+def test_build_directory_keyed_by_its_sources(monkeypatch, tmp_path):
+    """The kernels build into a directory named by a hash of the sources,
+    so an edited source never loads the libraries built before it."""
+    for p in K.CSRC.glob("*"):
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(K, "CSRC", tmp_path)
+    base = K._source_hash()
+    assert K._source_hash() == base
+    src = tmp_path / "fp_kernels.cu"
+    src.write_bytes(src.read_bytes() + b"\n")
+    assert K._source_hash() != base
+
+
 @pytest.mark.parametrize("pairs, fp12_mul", [(65, 42), (33, 41), (257, 44)])
 def test_expected_launches_of_one_verify(pairs, fp12_mul):
     """63 doubling and 5 addition steps (|x|'s bits after the leading one,

@@ -200,6 +200,31 @@ def test_fp12_cyclotomic_sq_kernel_on_card_equals_plain(rows, kind):
     assert torch.equal(got.cpu(), K.fp12_cyclotomic_sq_plain(a.cpu()))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["lazy", "maximal", "strided"])
+@pytest.mark.parametrize("rows", [1, 2, 64, 1025])
+def test_fp12_mul_kernel_on_card_equals_plain(rows, kind):
+    """The block-per-row Fp12 product equals its plain version on the card
+    at the final exponentiation's one row, the halving product's 2 and 64
+    rows and a ragged 1025: on seeded lazy limbs, with every limb at 2^12,
+    and on fp12_prod's strided halves (every other row of one tensor, which
+    the wrapper copies to rows); the launch is counted."""
+    dev = need_card()
+    rng = np.random.default_rng(50)
+    f = torch.as_tensor(lazy(rng, (2 * rows, 2, 3, 2))).to(dev)
+    a, b = f[:rows], f[rows:]
+    if kind == "maximal":
+        a, b = torch.full_like(a, 1 << 12), torch.full_like(b, 1 << 12)
+    elif kind == "strided":
+        a, b = f[0::2], f[1::2]
+    before = K.LAUNCHES["fp12_mul"]
+    got = K.fp12_mul(a, b)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fp12_mul"] == before + 1
+    assert torch.equal(got, K.fp12_mul_plain(a, b))
+    assert torch.equal(got.cpu(), K.fp12_mul_plain(a.cpu(), b.cpu()))
+
+
 def test_c_entry_points_match_the_bindings():
     """Every C entry point bound in kernels.ENTRY is defined in its
     library's source with that many pointer arguments before `int n,
