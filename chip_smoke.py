@@ -11,7 +11,8 @@ Phases (each one fails the run with a nonzero exit):
   kernels    each kernel against its plain PyTorch version on the card, at
              the main path's shapes (KERNEL_ROWS: fp_sq/fp_mul at the
              inversions' one row and at 1024 and 1000 rows, fp_sq also at
-             2048, the Miller steps at 65 and 1025 pairs, the tower
+             2048, fp_mul also at 98,304 (the aggregate batch's largest
+             launch of each), the Miller steps at 65 and 1025 pairs, the tower
              kernels at the final exponentiation's one row, fp6_mul also
              at 2 rows, fp12_mul also at the halving product's 64 and 32
              rows, and all three at a ragged 1025), on seeded lazy limbs,
@@ -108,10 +109,10 @@ KERNEL_SYMBOL = {
 # rows the kernels phase runs each kernel at; the first is the main path's
 # commonest shape, the one the JSON line reports (one row for fp_sq and
 # fp_mul: 1900 of a gossip verify's 2725 fp_sq launches and 547 of its
-# 1204 fp_mul launches, the Fermat inversions' chains); fp_sq also at the
-# aggregate batch's largest, 2048 rows
+# 1204 fp_mul launches, the Fermat inversions' chains); fp_sq and fp_mul
+# also at the aggregate batch's largest launch of each, 2048 and 98,304 rows
 KERNEL_ROWS = {
-    "fp_mul": [1, 1024, 1000],
+    "fp_mul": [1, 1024, 1000, 98304],
     "fp_sq": [1, 1024, 1000, 2048],
     "miller_dbl_step": [65, 1025],
     "miller_add_step": [65, 1025],
@@ -125,15 +126,18 @@ def log(*a):
     print(*a, flush=True)
 
 
-# --- operation and byte counts for the bound (the one-thread loops) ------------
+# --- operation and byte counts for the bound ----------------------------------
 
 
 def _op_counts() -> dict:
-    """int32 operations per row of each kernel's function, counted from the
-    one-thread loops of field.cuh's transcription (a multiply-add is 2;
-    carries 3 per limb per round; loads, stores and index arithmetic not
-    counted); the square counts each cross product once, the least work
-    for it, whatever its kernel does."""
+    """int32 operations per row of each kernel's function, counted as a
+    one-thread loop over the limbs does them (a multiply-add is 2; carries
+    3 per limb per round; loads, stores and index arithmetic not counted);
+    the square counts each cross product once, the least work for it,
+    whatever its kernel does. The addition step counts z^2 and xq z^2 once
+    (jac_madd's z1^2 and x2 z1^2 are the same functions of the same
+    operands, and its kernel computes each once): its bound fell by one
+    Fp2 square and one Fp2 product for that reason alone."""
     def carry3(w):
         return 3 * (3 * w + 3)
 
@@ -162,7 +166,7 @@ def _op_counts() -> dict:
     jac_double = 5 * fp2_sq + 2 * fp2_mul + 5 * ms2 + 6 * a2
     jac_madd = 4 * fp2_sq + 7 * fp2_mul + 4 * ms2 + 9 * a2
     dbl_step = 3 * fp2_sq + 4 * fp2_mul + 4 * ms2 + a2 + 2 * mulfp + jac_double
-    add_step = fp2_sq + 6 * fp2_mul + 4 * a2 + 2 * mulfp + jac_madd
+    add_step = 5 * fp2_mul + 4 * a2 + 2 * mulfp + jac_madd  # z^2, xq z^2 shared
     fp12_mul = 3 * fp6_mul + 15 * a2 + xi
     cyclo_sq = 9 * fp2_sq + 12 * a2 + 4 * xi + 6 * 2 * lincomb
     return {
@@ -732,8 +736,9 @@ def profile_verify(torch, B, sets, label):
     """One warm verify of the marshalled batch without the profiler (its
     wall time), then the same verify under torch.profiler: device busy
     time (sum of kernel times on the one stream), the kernels that take
-    the most of it, and the idle share 1 - busy / unprofiled wall (the
-    profiler's own host cost stretches its wall, not the kernels)."""
+    the most of it, each hand-written kernel's launches and device time,
+    and the idle share 1 - busy / unprofiled wall (the profiler's own host
+    cost stretches its wall, not the kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     mb = B._marshal_batch(sets, "cuda", seed=13)
@@ -753,11 +758,17 @@ def profile_verify(torch, B, sets, label):
     busy_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    port = {}  # each hand-written kernel: (launches, device ms) in the verify
+    for name, symbol in KERNEL_SYMBOL.items():
+        hits = [e for e in kernels if is_kernel_key(symbol, e.key)]
+        port[name] = (sum(e.count for e in hits),
+                      sum(e.self_device_time_total for e in hits) / 1e3)
     summary = dict(
         wall_ms=wall_ms, profiled_wall_ms=profiled_wall_ms,
         device_busy_ms=busy_us / 1e3, idle_share=1 - busy_us / 1e3 / wall_ms,
         device_kernels=launches,
         top=[(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top],
+        port_kernels=port,
     )
     log(f"{label} profile: wall {wall_ms:.1f} ms (profiler off; "
         f"{profiled_wall_ms:.1f} ms on), device busy {busy_us / 1e3:.1f} ms, "
@@ -765,6 +776,8 @@ def profile_verify(torch, B, sets, label):
         f"{launches} device kernels")
     for key, count, ms in summary["top"]:
         log(f"{label} profile:   {ms:9.2f} ms  {count:7d}x  {key}")
+    log(f"{label} profile: hand-written kernels (launches, device ms): "
+        + ", ".join(f"{n} {c} {ms:.3f}" for n, (c, ms) in port.items()))
     return summary
 
 

@@ -14,14 +14,14 @@ lighthouse_tpu/crypto/bls/tpu/pallas_kernels.py:
                          tower.fp12_cyclotomic_sq
 
 Sources are `lighthouse_tpu_torch/csrc/*.cu` over two device field
-layers: `field.cuh`, one thread per row (fp_mul, miller_add_step,
-fp6_mul), and `field_coop.cuh`, where one warp works on one Fp element:
-a warp per row for fp_sq, one block per row with a warp per Fp2 product
-for miller_dbl_step, fp12_mul and fp12_cyclotomic_sq. They are compiled
-with `nvcc` for sm_90a into plain-C shared libraries at first use
-(`build()`), one `nvcc` per source started together, and loaded with
-ctypes. The build directory is `build/kernels/` at the repository root,
-keyed by a hash of the sources.
+layers: `field.cuh`, one thread per row (fp6_mul), and `field_coop.cuh`,
+where one warp works on one Fp element: a warp per row for fp_mul and
+fp_sq, one block per row with a warp per Fp2 product for
+miller_dbl_step, miller_add_step, fp12_mul and fp12_cyclotomic_sq. They
+are compiled with `nvcc` for sm_90a into plain-C shared libraries at
+first use (`build()`), one `nvcc` per source started together, and
+loaded with ctypes. The build directory is `build/kernels/` at the
+repository root, keyed by a hash of the sources.
 
 Each wrapper checks dtype and shape on any device, then takes its plain
 PyTorch version only for CPU tensors; for a CUDA tensor it launches the

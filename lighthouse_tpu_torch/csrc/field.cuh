@@ -1,10 +1,11 @@
 // BLS12-381 field library for the hand-written CUDA kernels (sm_90a).
 //
 // Transcribes the in-kernel field helpers `_k*` of
-// lighthouse_tpu/crypto/bls/tpu/pallas_kernels.py (lines 58-472): Fp, Fp2,
-// Fp6, Fp12, the sparse line multiply and the Jacobian Miller steps, on the
-// same representation -- 12-bit signed limbs in int32, width W = 35, lazy
-// form limbs in [-1, 2^12].
+// lighthouse_tpu/crypto/bls/tpu/pallas_kernels.py (lines 58-472) that the
+// Fp6 product reaches -- the Fp reduction, Fp2 and Fp6 Karatsuba -- on the
+// same representation: 12-bit signed limbs in int32, width W = 35, lazy
+// form limbs in [-1, 2^12]. It also holds the constants and the FOLD_R
+// tables that the warp-cooperative layer (field_coop.cuh) builds on.
 //
 // BIT IDENTITY. Every function returns the same int32 limbs as its PyTorch
 // (and JAX) counterpart:
@@ -12,7 +13,7 @@
 //     limbs.py keep every partial sum far below 2^31), so the column loops
 //     may run in any order;
 //   * the carry/fold schedule is reproduced exactly: reduce = carry3, fold,
-//     fold; norm = carry3, fold; add/sub/neg = one fold of the raw sum.
+//     fold; add/sub = one fold of the raw sum.
 //     A carry round maps width w to w + 1 and keeps every carry, so the
 //     widths below are those of the JAX arrays and nothing is truncated.
 //
@@ -22,14 +23,13 @@
 // output may alias an input.
 //
 // DESIGN (simple first): one thread per row, the whole working set in
-// registers and local memory. The Fp2-level helpers are __noinline__ so
-// the fused Miller kernels build in seconds instead of inlining ~150 Fp2
-// products each; their frames live on the thread stack (local memory,
-// cached in L1/L2), which the CUDA runtime sizes at launch. The kernels of
-// fp_mul, miller_add_step and fp6_mul run on this layer; fp_sq (a warp per
-// row) and miller_dbl_step, fp12_mul and fp12_cyclotomic_sq (a block per
-// row) run on the warp-cooperative layer of field_coop.cuh, which gives
-// the same integers.
+// registers and local memory. The Fp2-level helpers are __noinline__, so
+// the Fp6 product does not inline its six Fp2 products; their frames live
+// on the thread stack (local memory, cached in L1/L2), which the CUDA
+// runtime sizes at launch. Only the kernel of fp6_mul runs on this layer;
+// fp_mul and fp_sq (a warp per row) and miller_dbl_step, miller_add_step,
+// fp12_mul and fp12_cyclotomic_sq (a block per row) run on the
+// warp-cooperative layer of field_coop.cuh, which gives the same integers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,10 +45,10 @@ constexpr int NFOLD = 44;        // FOLD_R rows
 constexpr int F2 = 2 * W, F6 = 6 * W, F12 = 12 * W;
 
 // FOLD_R[r][j] = limbs(2^(12*(32+r)) mod p), j < 32 (the part folds read):
-// in constant memory for the one-thread kernels, whose lanes read one row
-// entry at a time, and in global memory for the block-per-row kernels of
-// field_coop.cuh, which copy it into shared memory (their lanes read a row
-// at once, and constant memory serialises different addresses)
+// in constant memory for the one-thread kernel, whose lanes read one row
+// entry at a time, and in global memory for the kernels of field_coop.cuh,
+// whose lanes read a row at once (constant memory serialises different
+// addresses): read there directly, or copied into shared memory
 __constant__ int FOLD[NFOLD * NL];
 __device__ int FOLD_G[NFOLD * NL];
 
@@ -92,12 +92,6 @@ __device__ __noinline__ void reduce(int* cols) {
   fold(cols, W);            // 3 fold rows  -> width 35
 }
 
-// limbs._norm: x of width W (room for W + 3) -> carry3, one fold.
-__device__ __noinline__ void norm(int* x) {
-  carry3(x, W);
-  fold(x, W + 3);
-}
-
 // schoolbook columns, cols[k] = sum_{i+j=k} a_i b_j (room for NCOL + 3)
 __device__ __noinline__ void mul_cols(int* cols, const int* a, const int* b) {
   for (int k = 0; k < NCOL; ++k) cols[k] = 0;
@@ -107,47 +101,23 @@ __device__ __noinline__ void mul_cols(int* cols, const int* a, const int* b) {
   }
 }
 
-__device__ __noinline__ void fp_mul(int* out, const int* a, const int* b) {
-  int cols[NCOL + 3];
-  mul_cols(cols, a, b);
-  reduce(cols);
-  for (int i = 0; i < W; ++i) out[i] = cols[i];
-}
-
-// n Fp elements at once: out = fold(a + sa * b) with sa in {+1, -1, 0}
-// (add, sub, neg(a) as sa = 0 with a negated).
+// n Fp elements at once: out = fold(a + sa * b) with sa = +1 (add) or
+// -1 (sub).
 __device__ __noinline__ void lin_n(int* out, const int* a, const int* b,
-                                   int sa, int sign_a, int n) {
+                                   int sa, int n) {
   for (int e = 0; e < n; ++e) {
     int t[W];
-    for (int i = 0; i < W; ++i) {
-      int v = sign_a * a[e * W + i];
-      if (sa) v += sa * b[e * W + i];
-      t[i] = v;
-    }
+    for (int i = 0; i < W; ++i) t[i] = a[e * W + i] + sa * b[e * W + i];
     fold(t, W);
     for (int i = 0; i < W; ++i) out[e * W + i] = t[i];
   }
 }
 
 __device__ __forceinline__ void add_n(int* out, const int* a, const int* b, int n) {
-  lin_n(out, a, b, 1, 1, n);
+  lin_n(out, a, b, 1, n);
 }
 __device__ __forceinline__ void sub_n(int* out, const int* a, const int* b, int n) {
-  lin_n(out, a, b, -1, 1, n);
-}
-__device__ __forceinline__ void neg_n(int* out, const int* a, int n) {
-  lin_n(out, a, a, 0, -1, n);
-}
-
-// limbs.mul_small on n elements: norm(a * k), |k| <= 64
-__device__ __noinline__ void mul_small_n(int* out, const int* a, int k, int n) {
-  for (int e = 0; e < n; ++e) {
-    int t[W + 3];
-    for (int i = 0; i < W; ++i) t[i] = a[e * W + i] * k;
-    norm(t);
-    for (int i = 0; i < W; ++i) out[e * W + i] = t[i];
-  }
+  lin_n(out, a, b, -1, n);
 }
 
 __device__ __forceinline__ void copy_n(int* out, const int* a, int n) {
@@ -178,23 +148,6 @@ __device__ __noinline__ void fp2_mul(int* out, const int* a, const int* b) {
   }
 }
 
-// (a0 + a1 u)^2 = (a0 + a1)(a0 - a1) + 2 a0 a1 u
-__device__ __noinline__ void fp2_sq(int* out, const int* a) {
-  int tc[NCOL + 3], c0[NCOL + 3];
-  int s[W], d[W];
-  mul_cols(tc, a, a + W);
-  add_n(s, a, a + W, 1);
-  sub_n(d, a, a + W, 1);
-  mul_cols(c0, s, d);
-  reduce(c0);
-  for (int k = 0; k < NCOL; ++k) tc[k] = tc[k] + tc[k];
-  reduce(tc);
-  for (int i = 0; i < W; ++i) {
-    out[i] = c0[i];
-    out[W + i] = tc[i];
-  }
-}
-
 // xi = 1 + u: (c0 - c1) + (c0 + c1) u
 __device__ __noinline__ void fp2_mul_by_xi(int* out, const int* a) {
   int r[F2];
@@ -203,13 +156,7 @@ __device__ __noinline__ void fp2_mul_by_xi(int* out, const int* a) {
   copy_n(out, r, 2);
 }
 
-// Fp2 x Fp: two plain Fp products
-__device__ __noinline__ void fp2_mul_fp(int* out, const int* a, const int* s) {
-  fp_mul(out, a, s);
-  fp_mul(out + W, a + W, s);
-}
-
-// --- Fp6 (tower.fp6_mul, fp6_mul_by_v) ------------------------------------------
+// --- Fp6 (tower.fp6_mul) -------------------------------------------------
 
 __device__ __noinline__ void fp6_mul(int* out, const int* a, const int* b) {
   const int *a0 = a, *a1 = a + F2, *a2 = a + 2 * F2;
@@ -243,119 +190,6 @@ __device__ __noinline__ void fp6_mul(int* out, const int* a, const int* b) {
   sub_n(m, m, t2, 2);
   add_n(r + 2 * F2, m, t1, 2);
   copy_n(out, r, 6);
-}
-
-__device__ __noinline__ void fp6_mul_by_v(int* out, const int* a) {
-  int r[F6];
-  fp2_mul_by_xi(r, a + 2 * F2);
-  copy_n(r + F2, a, 2);
-  copy_n(r + 2 * F2, a + F2, 2);
-  copy_n(out, r, 6);
-}
-
-// --- Miller step pieces (pairing.py) -----------------------------------------
-
-// Fp6 * (a + b v): pairing._fp6_mul_s2
-__device__ __noinline__ void fp6_mul_s2(int* out, const int* f6, const int* a,
-                                        const int* b) {
-  const int *d0 = f6, *d1 = f6 + F2, *d2 = f6 + 2 * F2;
-  int x[F2], y[F2];
-  int r[F6];
-  fp2_mul(x, d0, a);
-  fp2_mul(y, d2, b);
-  fp2_mul_by_xi(y, y);
-  add_n(r, x, y, 2);
-  fp2_mul(x, d1, a);
-  fp2_mul(y, d0, b);
-  add_n(r + F2, x, y, 2);
-  fp2_mul(x, d2, a);
-  fp2_mul(y, d1, b);
-  add_n(r + 2 * F2, x, y, 2);
-  copy_n(out, r, 6);
-}
-
-// Fp6 * (c v): pairing._fp6_mul_s1
-__device__ __noinline__ void fp6_mul_s1(int* out, const int* f6, const int* c) {
-  int r[F6];
-  fp2_mul(r, f6 + 2 * F2, c);
-  fp2_mul_by_xi(r, r);
-  fp2_mul(r + F2, f6, c);
-  fp2_mul(r + 2 * F2, f6 + F2, c);
-  copy_n(out, r, 6);
-}
-
-// pairing.mul_by_line: f * (c0 + cv v + cvw v w), line = [c0 | cv | cvw]
-__device__ __noinline__ void mul_by_line(int* out, const int* f, const int* line) {
-  const int *c0 = line, *cv = line + F2, *cvw = line + 2 * F2;
-  const int *f0 = f, *f1 = f + F6;
-  int t0[F6], t1[F6], s[F6], x[F6];
-  int cs[F2];
-  fp6_mul_s2(t0, f0, c0, cv);
-  fp6_mul_s1(t1, f1, cvw);
-  add_n(x, f0, f1, 6);
-  add_n(cs, cv, cvw, 2);
-  fp6_mul_s2(s, x, c0, cs);
-  fp6_mul_by_v(x, t1);
-  add_n(out, t0, x, 6);
-  sub_n(s, s, t0, 6);
-  sub_n(out + F6, s, t1, 6);
-}
-
-// pairing._jac_madd: madd-2007-bl, q = [xq | yq]
-__device__ __noinline__ void jac_madd(int* out, const int* t, const int* q) {
-  const int *x1 = t, *y1 = t + F2, *z1 = t + 2 * F2;
-  const int *x2 = q, *y2 = q + F2;
-  int z1z1[F2], u2[F2], s2[F2], h[F2], hh[F2], i[F2], j[F2], rr[F2], v[F2];
-  int u[F2], w[F2];
-  int r[F6];
-  fp2_sq(z1z1, z1);
-  fp2_mul(u2, x2, z1z1);
-  fp2_mul(s2, y2, z1);
-  fp2_mul(s2, s2, z1z1);
-  sub_n(h, u2, x1, 2);
-  fp2_sq(hh, h);
-  mul_small_n(i, hh, 4, 2);
-  fp2_mul(j, h, i);
-  sub_n(u, s2, y1, 2);
-  mul_small_n(rr, u, 2, 2);
-  fp2_mul(v, x1, i);
-  fp2_sq(u, rr);
-  sub_n(u, u, j, 2);
-  mul_small_n(w, v, 2, 2);
-  sub_n(r, u, w, 2);                  // x3
-  sub_n(u, v, r, 2);
-  fp2_mul(u, rr, u);
-  fp2_mul(w, y1, j);
-  mul_small_n(w, w, 2, 2);
-  sub_n(r + F2, u, w, 2);             // y3
-  add_n(u, z1, h, 2);
-  fp2_sq(u, u);
-  sub_n(u, u, z1z1, 2);
-  sub_n(r + 2 * F2, u, hh, 2);        // z3
-  copy_n(out, r, 6);
-}
-
-// pairing._add_step: T + Q and the chord line through T, Q evaluated at P
-__device__ __noinline__ void add_step(int* t_out, int* line, const int* t,
-                                      const int* q, const int* xp,
-                                      const int* yp) {
-  const int *x = t, *y = t + F2, *z = t + 2 * F2;
-  const int *xq = q, *yq = q + F2;
-  int z2[F2], z3[F2], n[F2], d[F2], u[F2], v[F2];
-  fp2_sq(z2, z);
-  fp2_mul(z3, z2, z);
-  fp2_mul(u, yq, z3);
-  sub_n(n, y, u, 2);
-  fp2_mul(u, xq, z2);
-  sub_n(u, x, u, 2);
-  fp2_mul(d, z, u);
-  fp2_mul(u, n, xq);
-  fp2_mul(v, d, yq);
-  sub_n(line, u, v, 2);               // c0
-  fp2_mul_fp(u, n, xp);
-  neg_n(line + F2, u, 2);             // cv
-  fp2_mul_fp(line + 2 * F2, d, yp);   // cvw
-  jac_madd(t_out, t, q);
 }
 
 }  // namespace lh

@@ -1,6 +1,6 @@
-// Warp-cooperative BLS12-381 field layer: the kernels of fp_sq (a warp
-// per row) and of miller_dbl_step, fp12_mul and fp12_cyclotomic_sq (a block
-// per row) run on it.
+// Warp-cooperative BLS12-381 field layer: the kernels of fp_mul and fp_sq
+// (a warp per row) and of miller_dbl_step, miller_add_step, fp12_mul and
+// fp12_cyclotomic_sq (a block per row) run on it.
 //
 // The same integers as field.cuh, with one warp working on one Fp element
 // instead of one thread. A value in flight lives in the warp's registers,
@@ -18,7 +18,7 @@
 //   * the schoolbook columns are summed over i in the same order (lane l
 //     owns columns l, l+32, l+64; b sits between zeros, so out-of-range
 //     terms add 0);
-//   * reduce, norm, add/sub, mul_small and lincomb keep field.cuh's widths
+//   * reduce, norm, add/sub, mul_small and lincomb keep limbs.py's widths
 //     and order (carry3, fold, fold; carry3, fold; one fold of the sum).
 //
 // SYNCHRONISATION. Every lane of a warp calls every function here (the
@@ -193,7 +193,7 @@ struct Warp {
     return {reduce(r0), reduce(rk)};
   }
 
-  // field.cuh fp2_sq: (a0 + a1)(a0 - a1) + 2 a0 a1 u
+  // tower.fp2_sq: (a0 + a1)(a0 - a1) + 2 a0 a1 u
   __device__ __noinline__ L2 fp2_sq(const int* a) const {
     set_pad(load(a + W));
     Limbs tc = cols(a, pad);

@@ -135,7 +135,7 @@ struct CycloRow {
 };
 
 // tower.fp12_cyclotomic_sq (_k12_cyclo_sq), Granger-Scott, in the order of
-// field.cuh's one-thread transcription. x_ij is Fp2 slot 3i + j of the row.
+// kernels.fp12_cyclotomic_sq_plain. x_ij is Fp2 slot 3i + j of the row.
 __global__ void __launch_bounds__(CYCLO_NW * 32)
 fp12_cyclo_sq_kernel(int* __restrict__ out, const int* __restrict__ a) {
   using lh::F2;

@@ -44,9 +44,12 @@ def test_kernels_phase_times_the_main_paths_one_row(name):
     """The kernels phase runs fp_sq, fp_mul and fp12_mul at one row, the
     shape of most of their launches (the inversions' and the final
     exponentiation's chains), and reports it first (the JSON line's
-    shape); each kernel's profiler symbol is a __global__ of its source."""
+    shape); fp_sq and fp_mul also at the aggregate batch's largest launch
+    of each (2048 and 98,304 rows); each kernel's profiler symbol is a
+    __global__ of its source."""
     rows = CS.KERNEL_ROWS[name]
     assert rows[0] == 1 and len(set(rows)) == len(rows)
+    assert {"fp_sq": 2048, "fp_mul": 98304}.get(name, 1) in rows
     src = (ROOT / CS.KERNEL_META[name][0]).read_text()
     assert re.search(r"__global__[^;{]*\b%s\(" % CS.KERNEL_SYMBOL[name], src)
     assert set(CS.KERNEL_ROWS) == set(K.LAUNCHES)

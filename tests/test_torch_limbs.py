@@ -116,24 +116,29 @@ def test_wrappers_take_plain_version_only_on_cpu():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [1, 7, 128, 1000, 1024])
+@pytest.mark.parametrize("rows", [1, 7, 128, 1000, 1024, 98304])
 def test_fp_kernels_on_card_equal_plain(rows):
-    """fp_mul and the warp-per-row fp_sq equal their plain versions on the
+    """The warp-per-row fp_mul and fp_sq equal their plain versions on the
     card at the inversions' one row, a ragged 7 (a block of four warps
-    part-filled), the sqrt chains' 128 and 1024 rows and a ragged 1000, on
-    seeded lazy limbs with up to three all-maximal rows and on all-maximal
-    operands; fp_sq also against its plain version on the CPU."""
+    part-filled), the sqrt chains' 128 and 1024 rows, a ragged 1000 and
+    the aggregate batch's largest fp_mul launch, 98,304 rows, on seeded
+    lazy limbs with up to three all-maximal rows and on all-maximal
+    operands; each also against its plain version on the CPU."""
     dev = need_card()
     rng = np.random.default_rng(24)
     a = torch.as_tensor(lazy(rng, (rows,), maximal_rows=min(3, rows - 1))).to(dev)
     b = torch.as_tensor(lazy(rng, (rows,), maximal_rows=3)).to(dev)
     n0, s0 = K.LAUNCHES["fp_mul"], K.LAUNCHES["fp_sq"]
-    assert torch.equal(K.fp_mul(a, b), K.fp_mul_plain(a, b))
+    got = K.fp_mul(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.fp_mul_plain(a, b))
+    assert torch.equal(got.cpu(), K.fp_mul_plain(a.cpu(), b.cpu()))
     got = K.fp_sq(a)
     torch.cuda.synchronize()
     assert torch.equal(got, K.fp_sq_plain(a))
     assert torch.equal(got.cpu(), K.fp_sq_plain(a.cpu()))
     full = torch.full_like(a, 1 << 12)
+    assert torch.equal(K.fp_mul(full, full), K.fp_mul_plain(full, full))
     assert torch.equal(K.fp_sq(full), K.fp_sq_plain(full))
-    assert K.LAUNCHES["fp_mul"] == n0 + 1
+    assert K.LAUNCHES["fp_mul"] == n0 + 2
     assert K.LAUNCHES["fp_sq"] == s0 + 2

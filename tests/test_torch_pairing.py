@@ -110,11 +110,12 @@ def test_fp12_prod_bitexact():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["lazy", "maximal"])
-@pytest.mark.parametrize("rows", [65, 1025])
+@pytest.mark.parametrize("rows", [1, 33, 65, 1025])
 def test_miller_step_kernels_on_card_equal_plain(rows, kind):
-    """Both step kernels equal their plain versions on the card, on seeded
-    lazy limbs (first row all-maximal) and with every limb of every operand
-    at 2^12."""
+    """Both step kernels equal their plain versions on the card, at one
+    pair, the aggregate batch's 33, the gossip batch's 65 and 1025 pairs,
+    on seeded lazy limbs (first row all-maximal) and with every limb of
+    every operand at 2^12."""
     dev = need_card()
     x = {k: torch.as_tensor(v).to(dev) for k, v in _step_inputs(74, rows).items()}
     if kind == "maximal":
