@@ -19,9 +19,12 @@ Phases (each one fails the run with a nonzero exit):
              on every operand's limbs at the maximum 2^12, and on a mix
              of the two: torch.equal on int32, and at the first shape
              against the plain version run on the CPU; strided and
-             broadcast tower operands too; times: the wrapper's (events
-             around calls, host work included) and the kernel's own
-             device time per launch (torch.profiler)
+             broadcast tower operands too; each kernel also captured in
+             a CUDA graph at its first shape and replayed on other inputs
+             (every kernel runs inside the stage graphs on the main path);
+             times: the wrapper's (events around calls, host work
+             included) and the kernel's own device time per launch
+             (torch.profiler)
   parity     a 4-set batch through the five stages on the card and on the
              CPU (plain versions): every stage output bit-identical; the
              same for _stage_agg_prep and for the pubkey rows that
@@ -32,6 +35,9 @@ Phases (each one fails the run with a nonzero exit):
   aggregate  1024 sets x 2 pubkeys over 32 messages (tiled from 32 signed
              sets): the message-aggregated path; honest -> True, one
              forged set -> False
+  warm       torch_cuda.warm_compile() over DEFAULT_WARM_BUCKETS: its
+             report, and the card memory the graphs hold after it (so
+             the table phase's pad_to=256 batch lands on a warmed bucket)
   table      a PubkeyTable of 2^20 validators on the card (the keys of the
              two batches tiled with filler keys), and both batches again
              with every key tagged by a validator index spread over the
@@ -42,14 +48,29 @@ Phases (each one fails the run with a nonzero exit):
   aggverify  api.aggregate_verify over the gossip batch's 64 pubkeys and 64
              distinct messages (65 pairs): honest -> True, one message
              swapped -> False
+  graphs     the stage graphs (one CUDA graph per stage and shape,
+             captured at a shape's first call, replayed after) for the
+             4-set parity, gossip and aggregate batches: every stage's
+             replayed outputs torch.equal to the plain stage's on the same
+             marshalled batch; honest True, then the forged batch of the
+             same bucket False, then honest True again, all replayed;
+             capture seconds and replay ms per stage, and the card memory
+             the graphs hold
 
-Kernel launch counts are reset just before each honest main-path verify
-and read just after it; every kernel must have launched, and each
-pairing kernel exactly as often as the code implies (`expected_launches`:
-per verify 63 doubling and 5 addition steps, 316 cyclotomic squares, one
-fp6_mul, and 35 fp12_mul plus one per halving of the Miller product).
-The same run's launches by row count (`row_tally`, taken around the
-kernels' launch function) are logged.
+The entry points run each stage as a CUDA graph: in every path the first
+verify of a batch captures its stages and the verifies after it replay
+them. Kernel launch counts are reset just before each honest main-path
+verify (a replay) and read just after it; every kernel must have
+launched, and each pairing kernel exactly as often as the code implies
+(`expected_launches`: per verify 63 doubling and 5 addition steps, 316
+cyclotomic squares, one fp6_mul, and 35 fp12_mul plus one per halving of
+the Miller product). A replay counts the launches its capture recorded
+(`kernels.count_replay`). The same run's launches by row count
+(`row_tally`, taken around the kernels' launch and replay-count
+functions) are logged. Each path also logs one verify of the same batch
+through the plain (eager) stages, so eager and graphed latency come from
+one run.
+
 The script prints the card (nvidia-smi name and power limit), per-stage
 ms and sets/s, one JSON line with every kernel's numbers, and as its last
 line {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -69,7 +90,8 @@ import sys
 import time
 
 ALL_PHASES = (
-    "build", "kernels", "parity", "gossip", "aggregate", "table", "aggverify",
+    "build", "kernels", "parity", "gossip", "aggregate", "warm", "table",
+    "aggverify", "graphs",
 )
 
 # H100 SXM peaks. HBM: 3.35 TB/s (NVIDIA data sheet). int32: the CUDA C++
@@ -216,21 +238,31 @@ def expected_launches(TP, pairs: int) -> dict:
 @contextlib.contextmanager
 def row_tally(K):
     """Within the block, tally each kernel's launches by row count: wraps
-    the kernels module's `_launch` (which every wrapper calls) and yields
-    {kernel: {rows: launches}}, filled as launches happen."""
+    the kernels module's `_launch` (which every wrapper calls; inside a
+    graph capture it records and launches nothing) and `count_replay`
+    (which every graph replay calls with its capture's record), and
+    yields {kernel: {rows: launches}}, filled as launches happen."""
     tally = {k: {} for k in K.LAUNCHES}
-    launch = K._launch
+    launch, replay = K._launch, K.count_replay
+
+    def add(what, n):
+        tally[what][n] = tally[what].get(n, 0) + 1
 
     def counted(what, lib, fn, outs, ins, n):
         launch(what, lib, fn, outs, ins, n)
-        if n:
-            tally[what][n] = tally[what].get(n, 0) + 1
+        if n and getattr(K._capture, "log", None) is None:
+            add(what, n)
 
-    K._launch = counted
+    def counted_replay(record):
+        replay(record)
+        for what, n in record:
+            add(what, n)
+
+    K._launch, K.count_replay = counted, counted_replay
     try:
         yield tally
     finally:
-        K._launch = launch
+        K._launch, K.count_replay = launch, replay
 
 
 def launch_rows(tally) -> dict:
@@ -359,8 +391,9 @@ def need(cond, msg):
 # --- phases ---------------------------------------------------------------------
 
 
-def phase_kernels(torch, K, results):
-    """Each kernel against its plain version at the main path's shapes."""
+def phase_kernels(torch, K, CG, results):
+    """Each kernel against its plain version at the main path's shapes,
+    launched eagerly and replayed in a CUDA graph."""
     import numpy as np
 
     dev = torch.device("cuda")
@@ -429,6 +462,17 @@ def phase_kernels(torch, K, results):
                     cpu = cpu if isinstance(cpu, tuple) else (cpu,)
                     for g, w in zip(got, cpu):
                         need(torch.equal(g.cpu(), w), f"{name}: card != CPU plain")
+        # replayed: captured at the first shape on lazy inputs, replayed on
+        # mixed ones (the replay must read its new inputs)
+        graph = CG.graphed(kern)
+        graph(*inputs(name, sizes[0], "lazy"))
+        args = inputs(name, sizes[0], "mixed")
+        got, want = graph(*args), plain(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            need(torch.equal(g, w), f"{name} rows={sizes[0]}: graph replay "
+                 "differs from its plain version")
         timing = {}
         for rows in sizes:  # time at every shape, lazy inputs
             args = inputs(name, rows, "lazy")
@@ -450,7 +494,8 @@ def phase_kernels(torch, K, results):
                 f"wrapper {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
                 f"bound {b_ms:.6f} ms ({b_by})")
         log(f"kernel {name}: equal to its plain version at rows {sizes} "
-            f"on inputs {kinds}, max_abs_err {err}")
+            f"on inputs {kinds}, and replayed in a CUDA graph at "
+            f"{sizes[0]} rows, max_abs_err {err}")
     # the operand layouts the path hands the tower wrappers: fp12_prod's
     # strided halves, fp12_inv's broadcast inverse, a lone row
     f = lazy(65, 12, False).reshape(65, 2, 3, 2, W)
@@ -487,12 +532,27 @@ def _stage_timer(torch, times, outs=None):
     return timer
 
 
-def phase_parity(torch, api, B):
-    """A 4-set batch: every stage output on the card equals the CPU's."""
+def eager_stages(name, fn, *args):
+    """A stage timer that runs each stage's plain function (`.fn` of its
+    graphs) instead of its graph: the eager route."""
+    return fn.fn(*args)
+
+
+def parity_sets(api):
+    """4 single-pubkey sets over 3 messages (the per-set path, 5 Miller
+    pairs), plus a forged copy with set 1 under set 0's signature."""
     sks = [api.SecretKey(7001 + i) for i in range(4)]
     msgs = [b"parity-%d" % (i % 3) for i in range(4)]
     sets = [api.SignatureSet.single_pubkey(sk.sign(m), sk.public_key(), m)
             for sk, m in zip(sks, msgs)]
+    forged = list(sets)
+    forged[1] = api.SignatureSet.single_pubkey(
+        sets[0].signature, sets[1].pubkeys[0], sets[1].message)
+    return sets, forged
+
+
+def phase_parity(torch, api, B, sets):
+    """A 4-set batch: every stage output on the card equals the CPU's."""
     outs = {}
     for dev in ("cuda", "cpu"):
         o = {}
@@ -566,10 +626,15 @@ def _verify_timed(torch, B, sets, seed):
 def run_path(torch, K, TP, B, api, label, sets, forged, pairs, launches, card,
              profile):
     """One batch through `api.verify_signature_sets`, the user's entry
-    point: a warm-up verify, then the counted verify (launch counts reset
-    just before it and read just after), then the forged batch; per-stage
-    ms come from one more verify of the same batch under the stage timer."""
+    point: a warm-up verify (at a new bucket it captures the stage
+    graphs), then the counted verify (a replay; launch counts reset just
+    before it and read just after), then the forged batch; per-stage ms
+    come from one more verify of the same batch under the stage timer
+    (replays, synchronized), and the eager latency from one verify of the
+    same batch through the plain stages."""
+    t0 = time.perf_counter()
     need(api.verify_signature_sets(sets, seed=10), f"{label}: warm-up rejected")
+    first_secs = time.perf_counter() - t0
     with row_tally(K) as tally:
         K.reset_launches()
         t0 = time.perf_counter()
@@ -588,15 +653,26 @@ def run_path(torch, K, TP, B, api, label, sets, forged, pairs, launches, card,
     log(f"{label}: honest True, {len(sets)} sets, "
         f"{'aggregated' if aggregated else 'per-set'} path, {secs:.3f} s, "
         f"{len(sets) / secs:.2f} sets/s; launches {counts}; card: {card}")
-    log(f"{label}: stage ms (synchronized, {staged_secs:.3f} s): {stages}")
+    log(f"{label}: stage ms (graphs replayed, synchronized, "
+        f"{staged_secs:.3f} s): {stages}")
     t0 = time.perf_counter()
     bad = api.verify_signature_sets(forged, seed=13)
     need(not bad, f"{label}: forged batch accepted")
     log(f"{label}: forged False, {time.perf_counter() - t0:.3f} s")
-    out = dict(sets=len(sets), seconds=secs, stage_ms=times, aggregated=aggregated,
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager_ok = bool(B.run_marshalled(B._marshal_batch(sets, "cuda", seed=14),
+                                     timer=eager_stages))
+    eager_secs = time.perf_counter() - t0
+    need(eager_ok, f"{label}: eager verify rejected")
+    log(f"{label}: latency graphed {secs:.3f} s (replay), eager {eager_secs:.3f} s "
+        f"(plain stages), first verify {first_secs:.3f} s (captures at a new "
+        f"bucket); card: {card}")
+    out = dict(sets=len(sets), seconds=secs, eager_seconds=eager_secs,
+               first_seconds=first_secs, stage_ms=times, aggregated=aggregated,
                launches=counts, launch_rows=rows)
     if profile:
-        out["profile"] = profile_verify(torch, B, sets, label)
+        out["profile"] = profile_verify(torch, K, B, sets, label)
     return out
 
 
@@ -732,13 +808,16 @@ def phase_aggverify(torch, K, TP, B, api, gossip, launches, card):
                 stage_ms=times, launches=counts)
 
 
-def profile_verify(torch, B, sets, label):
-    """One warm verify of the marshalled batch without the profiler (its
-    wall time), then the same verify under torch.profiler: device busy
-    time (sum of kernel times on the one stream), the kernels that take
-    the most of it, each hand-written kernel's launches and device time,
-    and the idle share 1 - busy / unprofiled wall (the profiler's own host
-    cost stretches its wall, not the kernels)."""
+def profile_verify(torch, K, B, sets, label):
+    """For the replayed route (the stage graphs) and the eager route (the
+    plain stages): one warm verify of the marshalled batch without the
+    profiler (its wall time), then the same verify under torch.profiler:
+    device busy time (sum of kernel times on the one stream), the kernels
+    that take the most of it, each hand-written kernel's launches and
+    device time, whether the profiler saw every hand-written kernel launch
+    that the verify counted (inside a replay too), and the idle share
+    1 - busy / unprofiled wall (the profiler's own host cost stretches its
+    wall, not the kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     mb = B._marshal_batch(sets, "cuda", seed=13)
@@ -751,34 +830,151 @@ def profile_verify(torch, B, sets, label):
         need(verdict, f"{label}: profiled verify rejected")
         return (time.perf_counter() - t0) * 1e3
 
-    wall_ms = wall(lambda: B.run_marshalled(mb))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiled_wall_ms = wall(lambda: B.run_marshalled(mb))
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    launches = sum(e.count for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    port = {}  # each hand-written kernel: (launches, device ms) in the verify
-    for name, symbol in KERNEL_SYMBOL.items():
-        hits = [e for e in kernels if is_kernel_key(symbol, e.key)]
-        port[name] = (sum(e.count for e in hits),
-                      sum(e.self_device_time_total for e in hits) / 1e3)
-    summary = dict(
-        wall_ms=wall_ms, profiled_wall_ms=profiled_wall_ms,
-        device_busy_ms=busy_us / 1e3, idle_share=1 - busy_us / 1e3 / wall_ms,
-        device_kernels=launches,
-        top=[(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top],
-        port_kernels=port,
-    )
-    log(f"{label} profile: wall {wall_ms:.1f} ms (profiler off; "
-        f"{profiled_wall_ms:.1f} ms on), device busy {busy_us / 1e3:.1f} ms, "
-        f"idle share {summary['idle_share']:.4f} of the unprofiled wall, "
-        f"{launches} device kernels")
-    for key, count, ms in summary["top"]:
-        log(f"{label} profile:   {ms:9.2f} ms  {count:7d}x  {key}")
-    log(f"{label} profile: hand-written kernels (launches, device ms): "
-        + ", ".join(f"{n} {c} {ms:.3f}" for n, (c, ms) in port.items()))
-    return summary
+    out = {}
+    for route, timer in (("replay", None), ("eager", eager_stages)):
+        wall_ms = wall(lambda: B.run_marshalled(mb, timer=timer))
+        K.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiled_wall_ms = wall(lambda: B.run_marshalled(mb, timer=timer))
+        counted = dict(K.LAUNCHES)
+        kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        launches = sum(e.count for e in kernels)
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        port = {}  # each hand-written kernel: (launches, device ms) in the verify
+        for name, symbol in KERNEL_SYMBOL.items():
+            hits = [e for e in kernels if is_kernel_key(symbol, e.key)]
+            port[name] = (sum(e.count for e in hits),
+                          sum(e.self_device_time_total for e in hits) / 1e3)
+        seen_all = all(port[n][0] == c for n, c in counted.items())
+        summary = dict(
+            wall_ms=wall_ms, profiled_wall_ms=profiled_wall_ms,
+            device_busy_ms=busy_us / 1e3, idle_share=1 - busy_us / 1e3 / wall_ms,
+            device_kernels=launches, profiler_saw_every_launch=seen_all,
+            top=[(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top],
+            port_kernels=port,
+        )
+        tag = f"{label} profile ({route})"
+        log(f"{tag}: wall {wall_ms:.1f} ms (profiler off; "
+            f"{profiled_wall_ms:.1f} ms on), device busy {busy_us / 1e3:.1f} ms, "
+            f"idle share {summary['idle_share']:.4f} of the unprofiled wall, "
+            f"{launches} device kernels")
+        for key, count, ms in summary["top"]:
+            log(f"{tag}:   {ms:9.2f} ms  {count:7d}x  {key}")
+        log(f"{tag}: hand-written kernels (launches, device ms): "
+            + ", ".join(f"{n} {c} {ms:.3f}" for n, (c, ms) in port.items()))
+        log(f"{tag}: the profiler saw {'every' if seen_all else 'NOT every'} "
+            f"hand-written kernel launch the verify counted {counted}")
+        out[route] = summary
+    return out
+
+
+def graph_pool_bytes(torch) -> int:
+    """Card memory held by the CUDA-graph pools: the segments of every
+    private pool in the caching allocator's snapshot."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def memory_line(torch) -> dict:
+    """The graph pools' bytes and the allocator's reserved bytes, after
+    returning the unused cached blocks."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return dict(graph_pools=graph_pool_bytes(torch),
+                reserved=torch.cuda.memory_reserved())
+
+
+def mib(n: int) -> str:
+    return f"{n / 2**20:.1f} MiB"
+
+
+def phase_graphs(torch, K, TP, B, CG, batches, launches, card):
+    """Each batch marshalled once: its first verify captures the stage
+    graphs at its bucket (unless an earlier phase did), the plain stages
+    give the eager outputs, a replay under the stage timer gives each
+    stage's outputs (torch.equal to the eager ones) and replay ms; then a
+    counted replay (honest True, launch counts as the code implies), the
+    forged batch of the same bucket (False) and the honest one again
+    (True), all replayed."""
+    def flat(x):
+        return list(x) if isinstance(x, tuple) else [x]
+
+    out = {}
+    for label, (sets, forged, pairs) in batches.items():
+        tag = f"graphs {label}"
+        mb = B._marshal_batch(sets, "cuda", seed=31)
+        mb_bad = B._marshal_batch(forged, "cuda", seed=31)
+        bucket = B._shape_bucket(mb)
+        need(B._shape_bucket(mb_bad) == bucket,
+             f"{tag}: forged batch bucket {B._shape_bucket(mb_bad)} != {bucket}")
+        t0 = time.perf_counter()
+        need(bool(B.run_marshalled(mb)), f"{tag}: first verify rejected")
+        first_secs = time.perf_counter() - t0
+        want = {}
+        B.run_marshalled(
+            mb, timer=lambda n, fn, *a: want.setdefault(n, eager_stages(n, fn, *a)))
+        got, replay_ms, capture_s = {}, {}, {}
+        timed = _stage_timer(torch, replay_ms, got)
+
+        def replayed(name, fn, *args):
+            capture_s[name] = fn.capture_seconds[CG.shape_key(args)]
+            return timed(name, fn, *args)
+
+        B.run_marshalled(mb, timer=replayed)
+        for name in want:
+            for g, w in zip(flat(got[name]), flat(want[name])):
+                need(torch.equal(g, w),
+                     f"{tag}: stage {name} replay differs from its plain stage")
+        K.reset_launches()
+        t0 = time.perf_counter()
+        ok = bool(B.run_marshalled(mb))
+        secs = time.perf_counter() - t0
+        counts = dict(K.LAUNCHES)
+        need(ok, f"{tag}: honest batch rejected on replay")
+        check_launches(tag, counts, expected_launches(TP, pairs))
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        need(not bool(B.run_marshalled(mb_bad)),
+             f"{tag}: forged batch accepted on replay")
+        need(bool(B.run_marshalled(mb)),
+             f"{tag}: honest batch rejected on replay after the forged one")
+        log(f"{tag}: bucket {bucket}, every stage's replayed outputs equal to "
+            f"its plain stage's; honest True, forged False, honest True, "
+            f"replayed; first verify {first_secs:.3f} s, replayed verify "
+            f"{secs:.3f} s; launches {counts}; card: {card}")
+        log(f"{tag}: capture s (a stage's first call at its shape: eager run "
+            "and capture) " + " ".join(f"{k}={v:.3f}" for k, v in capture_s.items()))
+        log(f"{tag}: replay ms (synchronized) "
+            + " ".join(f"{k}={v:.2f}" for k, v in replay_ms.items()))
+        out[label] = dict(bucket=bucket, first_seconds=first_secs, seconds=secs,
+                          capture_seconds=capture_s, replay_ms=replay_ms,
+                          launches=counts)
+    mem = memory_line(torch)
+    log(f"graphs: the card's graph pools hold {mib(mem['graph_pools'])}, "
+        f"reserved {mib(mem['reserved'])}; card: {card}")
+    out["memory"] = mem
+    return out
+
+
+def phase_warm(torch, B, card):
+    """torch_cuda.warm_compile() over DEFAULT_WARM_BUCKETS, with the graph
+    pools' memory before and after it."""
+    before = memory_line(torch)
+    t0 = time.perf_counter()
+    report = B.warm_compile()
+    secs = time.perf_counter() - t0
+    after = memory_line(torch)
+    need([r["bucket"][:3] for r in report] == list(B.DEFAULT_WARM_BUCKETS),
+         f"warm: report {report}")
+    for r in report:
+        log(f"warm: bucket {r['bucket']} {r['seconds']:.3f} s, "
+            f"{'captured' if r['compiled'] else 'already captured'}")
+    log(f"warm: {len(report)} buckets in {secs:.1f} s; graph pools "
+        f"{mib(before['graph_pools'])} -> {mib(after['graph_pools'])}, reserved "
+        f"{mib(before['reserved'])} -> {mib(after['reserved'])}; card: {card}")
+    return dict(report=report, seconds=secs, memory_before=before,
+                memory_after=after)
 
 
 def gossip_sets(api):
@@ -832,6 +1028,7 @@ def main(argv=None) -> int:
     from lighthouse_tpu_torch.crypto.bls.backends import torch_cuda as B
     from lighthouse_tpu_torch.crypto.bls.gpu import kernels as K
     from lighthouse_tpu_torch.crypto.bls.gpu import pairing as TP
+    from lighthouse_tpu_torch.utils import cuda_graphs as CG
 
     t_start = time.perf_counter()
     card = card_line()
@@ -846,13 +1043,17 @@ def main(argv=None) -> int:
             log(f"ptxas {name}: {line}")
 
     results, launches, paths = {}, {}, {}
+    memory_start = memory_line(torch)
+    log(f"memory before any capture: {memory_start}")
     if "kernels" in phases:
-        phase_kernels(torch, K, results)
+        phase_kernels(torch, K, CG, results)
+    if "parity" in phases or "graphs" in phases:
+        parity = parity_sets(api) + (5,)  # 5 Miller pairs
     if "parity" in phases:
-        phase_parity(torch, api, B)
-    use_gossip = any(p in phases for p in ("gossip", "table", "aggverify"))
-    use_aggregate = any(p in phases for p in ("aggregate", "table"))
-    if use_gossip or use_aggregate:
+        phase_parity(torch, api, B, parity[0])
+    use_gossip = any(p in phases for p in ("gossip", "table", "aggverify", "graphs"))
+    use_aggregate = any(p in phases for p in ("aggregate", "table", "graphs"))
+    if use_gossip or use_aggregate or "warm" in phases:
         api.set_backend("torch_cuda")
         # (sets, forged, Miller pairs): the gossip batch takes the per-set
         # path (64 + 1 pairs), the aggregate batch the message-aggregated
@@ -872,14 +1073,21 @@ def main(argv=None) -> int:
                 paths[label] = run_path(
                     torch, K, TP, B, api, label, sets, forged, pairs, launches,
                     card, args.profile)
+        if "warm" in phases:
+            paths["warm"] = phase_warm(torch, B, card)
         if "table" in phases:
             paths.update(phase_table(torch, K, TP, B, api, batches, launches, card))
         if "aggverify" in phases:
             paths["aggverify"] = phase_aggverify(
                 torch, K, TP, B, api, batches["gossip"], launches, card)
-        need(all(launches.get(k, 0) > 0 for k in K.LAUNCHES),
-             f"kernels not launched on the main path: {launches}")
-        log(f"kernels {json.dumps(launches)}")
+        if "graphs" in phases:
+            paths["graphs"] = phase_graphs(
+                torch, K, TP, B, CG, {"parity": parity, **batches},
+                launches, card)
+        if use_gossip or use_aggregate:
+            need(all(launches.get(k, 0) > 0 for k in K.LAUNCHES),
+                 f"kernels not launched on the main path: {launches}")
+            log(f"kernels {json.dumps(launches)}")
 
     if results:
         line = []

@@ -14,6 +14,13 @@ Batch shapes are padded to power-of-two buckets exactly like the JAX
 backend (padded sets get weight 0 and infinity points), so for one seed
 both backends compute the same limbs at every stage.
 
+Each stage is `@jax.jit` in the JAX backend: one compiled executable per
+shape. Here each runs on the card as one CUDA graph per shape
+(`utils/cuda_graphs.py`): captured at its first call, replayed after.
+`warm_compile` captures the stages of every bucket of
+`DEFAULT_WARM_BUCKETS` before the first slot, and `_seen_shape_buckets`
+is the in-process registry of the bucketed shapes run so far.
+
 Also here: `aggregate_verify` (the spec's AggregateVerify through the same
 stages plus `_stage_agg_prep`), and the device-resident validator
 `PubkeyTable` with the index-gather marshalling route (`_common_table`,
@@ -23,12 +30,13 @@ backend's pipeline and scheduler call.
 
 Not yet in the port (see ROADMAP.md): the device mesh (so no sharded
 table), the monolithic program, the pipeline and scheduler objects,
-metrics/tracing/launch ledger, the compile cache, the speculation
-correction and the windowed ladder.
+metrics/tracing/launch ledger, the speculation correction and the
+windowed ladder.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -41,6 +49,7 @@ from ..gpu import hash_to_curve as THC
 from ..gpu import limbs as L
 from ..gpu import pairing as TP
 from ..gpu import tower as T
+from ....utils.cuda_graphs import graphed
 
 W = L.W
 
@@ -180,20 +189,30 @@ def _stage_agg_prep(pk_jac, sig_jac, real):
     return pk_aff, pk_inf | ~real, sig_aff, sig_inf, sig_ok
 
 
+# the stages as the entry points run them: on the card, one CUDA graph per
+# shape (`graphed(...).fn` is the plain stage above)
+_hash_graphs = graphed(_stage_hash)
+_prep_graphs = graphed(_stage_prep)
+_miller_graphs = graphed(_stage_miller)
+_final_graphs = graphed(_stage_final)
+_group_graphs = graphed(_stage_group)
+_agg_prep_graphs = graphed(_stage_agg_prep)
+
+
 def verify_device(u, h_idx, pk_jac, sig_jac, scalars, real, timer=None):
     """The per-set staged verify: hash the distinct messages, expand to
     sets by `h_idx`, then prep, Miller, final. `timer(name, fn, *args)`
     wraps each stage when given (chip_smoke.py times them)."""
     run = timer or (lambda name, fn, *a: fn(*a))
-    h_aff_u, h_inf_u = run("hash", _stage_hash, u)
+    h_aff_u, h_inf_u = run("hash", _hash_graphs, u)
     h_aff, h_inf = h_aff_u[h_idx], h_inf_u[h_idx]
     rpk_aff, rpk_inf, ssum_aff, ssum_inf, flags_ok = run(
-        "prep", _stage_prep, pk_jac, sig_jac, scalars, real
+        "prep", _prep_graphs, pk_jac, sig_jac, scalars, real
     )
     fprod = run(
-        "miller", _stage_miller, rpk_aff, rpk_inf, h_aff, h_inf, ssum_aff, ssum_inf
+        "miller", _miller_graphs, rpk_aff, rpk_inf, h_aff, h_inf, ssum_aff, ssum_inf
     )
-    return run("final", _stage_final, fprod, flags_ok)
+    return run("final", _final_graphs, fprod, flags_ok)
 
 
 def verify_device_aggregated(
@@ -202,15 +221,15 @@ def verify_device_aggregated(
     """The message-aggregated verify: the same prep, then the per-message
     group reduction, then ONE multi-pairing over m_b + 1 pairs."""
     run = timer or (lambda name, fn, *a: fn(*a))
-    h_aff, h_inf = run("hash", _stage_hash, u)
+    h_aff, h_inf = run("hash", _hash_graphs, u)
     rpk_aff, rpk_inf, ssum_aff, ssum_inf, flags_ok = run(
-        "prep", _stage_prep, pk_jac, sig_jac, scalars, real
+        "prep", _prep_graphs, pk_jac, sig_jac, scalars, real
     )
-    gpk_aff, gpk_inf = run("group", _stage_group, rpk_aff, rpk_inf, grid_idx, grid_real)
+    gpk_aff, gpk_inf = run("group", _group_graphs, rpk_aff, rpk_inf, grid_idx, grid_real)
     fprod = run(
-        "miller", _stage_miller, gpk_aff, gpk_inf, h_aff, h_inf, ssum_aff, ssum_inf
+        "miller", _miller_graphs, gpk_aff, gpk_inf, h_aff, h_inf, ssum_aff, ssum_inf
     )
-    return run("final", _stage_final, fprod, flags_ok)
+    return run("final", _final_graphs, fprod, flags_ok)
 
 
 # --- host marshalling ----------------------------------------------------------
@@ -468,6 +487,7 @@ def dispatch_verify_signature_sets(sets, seed=None, groups=None, index_pack=None
                         index_pack=index_pack, pad_to=pad_to)
     if mb is None:
         return False
+    _count_shape_bucket(*_shape_bucket(mb))
     return run_marshalled(mb)
 
 
@@ -499,15 +519,102 @@ def aggregate_verify(signature, pubkeys, messages, device=None, timer=None) -> b
     real[:k] = True
     real = torch.as_tensor(real).to(dev)
     pk_aff, pk_inf, sig_aff, sig_inf, sig_ok = run(
-        "agg_prep", _stage_agg_prep, torch.as_tensor(pk).to(dev),
+        "agg_prep", _agg_prep_graphs, torch.as_tensor(pk).to(dev),
         torch.as_tensor(_sig_limbs(signature)).to(dev), real,
     )
-    h_aff, h_inf = run("hash", _stage_hash, torch.as_tensor(u).to(dev))
+    h_aff, h_inf = run("hash", _hash_graphs, torch.as_tensor(u).to(dev))
     fprod = run(
-        "miller", _stage_miller, pk_aff, pk_inf, h_aff, h_inf | ~real,
+        "miller", _miller_graphs, pk_aff, pk_inf, h_aff, h_inf | ~real,
         sig_aff, sig_inf,
     )
-    return bool(run("final", _stage_final, fprod, sig_ok))
+    return bool(run("final", _final_graphs, fprod, sig_ok))
+
+
+# --- stage graphs: the bucket registry and the warm pass ---------------------
+
+# bucketed shapes run so far: the observable face of the stage graphs'
+# per-shape cache (a new bucket captures, a seen one replays)
+_seen_shape_buckets: set[tuple] = set()
+
+
+def _shape_bucket(mb: Marshalled) -> tuple:
+    """(n_b, k_b, m_b, g_b) of a marshalled batch; g_b = 0 on the per-set
+    path, the grid's group axis on the aggregated one."""
+    n_b, k_b = mb.pk.shape[:2]
+    g_b = 0 if mb.grid_idx is None else mb.grid_idx.shape[1]
+    return n_b, k_b, mb.u.shape[0], g_b
+
+
+def _count_shape_bucket(n_b: int, k_b: int, m_b: int, g_b: int = 0):
+    """Register a batch's bucketed shape; returns the key when it is new
+    in this process (its stages are captured now), else None. In-process
+    only, without the JAX backend's metrics and disk registry: a CUDA
+    graph does not outlive its process, so there is nothing to persist."""
+    key = (n_b, k_b, m_b, g_b)
+    if key in _seen_shape_buckets:
+        return None
+    _seen_shape_buckets.add(key)
+    return key
+
+
+# The shape families a fresh node sees in steady state, as the JAX
+# backend warms them: gossip batches (<= 64 sets, mostly distinct
+# messages -> m_b == n_b, per-set path) and aggregate/backfill batches
+# (repeated messages -> m_b at the floor, aggregated path); k_b at the
+# bucket floor for the dominant 1-pubkey sets.
+DEFAULT_WARM_BUCKETS: tuple = tuple(
+    sorted({(n_b, 4, m_b) for n_b in (4, 16, 64, 256, 512) for m_b in (4, n_b)})
+)
+
+
+def warm_compile(buckets=None, runner=None, device=None):
+    """Capture the stage graphs of every (n_b, k_b, m_b) bucket in
+    `buckets` before the first slot, as the JAX backend's warm_compile
+    compiles them: each bucket drives the route the dispatcher takes --
+    the aggregated path when m_b < n_b, else the per-set path (no mesh
+    yet) -- with an all-padding batch (projective infinities, zero
+    weights, no real set), since a graph is keyed by shapes alone.
+
+    `runner(kind, args)` is injectable for the tests (kind "staged" or
+    "aggregated"); the default runs the route twice on `device` (the card
+    unless the caller asks for the CPU) -- the first call at a shape
+    captures, the second replays -- and blocks until both have run.
+    Returns [{"bucket": (n_b, k_b, m_b, g_b), "seconds": s, "compiled":
+    the bucket was new in this process}]."""
+    dev = resolve_device(device)
+    if buckets is None:
+        buckets = DEFAULT_WARM_BUCKETS
+    if runner is None:
+        def runner(kind, args):
+            route = verify_device_aggregated if kind == "aggregated" else verify_device
+            for _ in range(2):
+                bool(route(*args))
+
+    def zeros(shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    report = []
+    for n_b, k_b, m_b in buckets:
+        aggregated = m_b < n_b
+        g_b = grid_bucket(n_b) if aggregated else 0
+        u = zeros((m_b, 2, 2, W))
+        pk = L.on(_INF_G1, dev).expand(n_b, k_b, 3, W).clone()
+        sig = zeros((n_b, 3, 2, W))
+        sig[:, 1, 0, 0] = 1
+        scalars = zeros((n_b, 2), torch.int64)
+        real = zeros((n_b,), torch.bool)
+        new_key = _count_shape_bucket(n_b, k_b, m_b, g_b)
+        t0 = time.perf_counter()
+        if aggregated:
+            runner("aggregated", (u, pk, sig, scalars, real,
+                                  zeros((m_b, g_b), torch.int64),
+                                  zeros((m_b, g_b), torch.bool)))
+        else:
+            runner("staged", (u, zeros((n_b,), torch.int64), pk, sig, scalars, real))
+        report.append({"bucket": (n_b, k_b, m_b, g_b),
+                       "seconds": time.perf_counter() - t0,
+                       "compiled": new_key is not None})
+    return report
 
 
 # --- device-resident pubkey table ---------------------------------------------

@@ -13,25 +13,28 @@ lighthouse_tpu/crypto/bls/tpu/pallas_kernels.py:
   fp12_cyclotomic_sq  <- pallas_kernels.fp12_cyclotomic_sq (_math_cyclo_sq):
                          tower.fp12_cyclotomic_sq
 
-Sources are `lighthouse_tpu_torch/csrc/*.cu` over two device field
-layers: `field.cuh`, one thread per row (fp6_mul), and `field_coop.cuh`,
+Sources are `lighthouse_tpu_torch/csrc/*.cu` over one device field
+layer, `field_coop.cuh` (its constants and FOLD_R table in `field.cuh`),
 where one warp works on one Fp element: a warp per row for fp_mul and
 fp_sq, one block per row with a warp per Fp2 product for
-miller_dbl_step, miller_add_step, fp12_mul and fp12_cyclotomic_sq. They
-are compiled with `nvcc` for sm_90a into plain-C shared libraries at
-first use (`build()`), one `nvcc` per source started together, and
-loaded with ctypes. The build directory is `build/kernels/` at the
-repository root, keyed by a hash of the sources.
+miller_dbl_step, miller_add_step, fp6_mul, fp12_mul and
+fp12_cyclotomic_sq. They are compiled with `nvcc` for sm_90a into
+plain-C shared libraries at first use (`build()`), one `nvcc` per source
+started together, and loaded with ctypes. The build directory is
+`build/kernels/` at the repository root, keyed by a hash of the sources.
 
 Each wrapper checks dtype and shape on any device, then takes its plain
 PyTorch version only for CPU tensors; for a CUDA tensor it launches the
-kernel or raises. `LAUNCHES` counts kernel launches (only there). The
-plain versions are the op compositions the kernels replace, so a kernel
-is held bit for bit against its plain version on the card.
+kernel or raises. `LAUNCHES` counts kernel launches (only there): a
+launch inside a CUDA-graph capture is recorded instead, and each replay
+of the graph counts its record (`count_replay`). The plain versions are
+the op compositions the kernels replace, so a kernel is held bit for bit
+against its plain version on the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -40,6 +43,7 @@ import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from . import limbs as L
@@ -62,6 +66,28 @@ LAUNCHES = {
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+_capture = threading.local()  # .log: the launch record of a capture
+
+
+@contextlib.contextmanager
+def recording():
+    """Within the block, a launch on this thread goes into the yielded
+    record as (kernel, rows) instead of being counted: the launches of a
+    CUDA-graph capture, which run only when the graph is replayed."""
+    _capture.log = []
+    try:
+        yield _capture.log
+    finally:
+        _capture.log = None
+
+
+def count_replay(record) -> None:
+    """Count the launches of one replay of a captured graph, from its
+    capture's record (a replay makes no `_launch` call)."""
+    for what, _ in record:
+        LAUNCHES[what] += 1
 
 
 # --- plain versions (the op compositions the kernels replace) --------------
@@ -134,6 +160,9 @@ def fp12_mul_plain(a, b):
     return torch.stack([c0, c1], dim=-4)
 
 
+_CYCLO_SIGN = np.array([-2, -2, -2, 2, 2, 2], np.int32)  # the 2x of 3t -+ 2x
+
+
 def fp12_cyclotomic_sq_plain(a):
     """tower.fp12_cyclotomic_sq as op composition, Granger-Scott (valid
     only in the cyclotomic subgroup): 9 Fp2 squarings in ONE stacked
@@ -153,7 +182,7 @@ def fp12_cyclotomic_sq_plain(a):
     # 3 t -+ 2 x with ONE normalization per slot (sum(|k|) = 5 <= 64)
     ts = torch.stack([t0, t2, t4, t8, t6, t7])
     xs = torch.stack([x00, x01, x02, x10, x11, x12])
-    sign = torch.tensor([-2, -2, -2, 2, 2, 2], dtype=torch.int32, device=a.device)
+    sign = L.on(_CYCLO_SIGN, a.device)
     out = L._norm(ts * 3 + xs * sign.view((6,) + (1,) * (xs.ndim - 1)))
     return torch.movedim(out.reshape((2, 3) + out.shape[1:]), (0, 1), (-4, -3))
 
@@ -173,7 +202,7 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _lock = threading.Lock()
 _libs: dict = {}
-# (library, device index) pairs whose __constant__ FOLD_R is loaded
+# (library, device index) pairs whose __device__ FOLD_R table is loaded
 _ready: set = set()
 _FOLD = torch.as_tensor(L.FOLD_R).contiguous()
 BUILD_INFO: dict = {}
@@ -268,7 +297,7 @@ def _bind(name, lib) -> None:
 
 def _lib(name: str, device: torch.device):
     """Library `name` with its FOLD_R table loaded on `device` (once per
-    device: __constant__ memory belongs to one device). Call it, and
+    device: a __device__ variable belongs to one device). Call it, and
     launch, under `torch.cuda.device(device)`."""
     if not _libs:
         build()
@@ -326,14 +355,19 @@ def _operands(what: str, tail: tuple, *ts):
 def _launch(what: str, lib: str, fn: str, outs, ins, n: int) -> None:
     """Launch C entry `fn` of library `lib` on the n rows of the row-major
     tensors `outs` and `ins`, on the current stream of their device; raise
-    on a nonzero cudaGetLastError(); count the launch."""
+    on a nonzero cudaGetLastError(); count the launch (or, inside a
+    capture, record it)."""
     if not n:
         return
     dev = outs[0].device
     with torch.cuda.device(dev):
         ptrs = [t.data_ptr() for t in (*outs, *ins)]
         _check(getattr(_lib(lib, dev), fn)(*ptrs, n, _stream(outs[0])), what)
-    LAUNCHES[what] += 1
+    log = getattr(_capture, "log", None)
+    if log is None:
+        LAUNCHES[what] += 1
+    else:
+        log.append((what, n))
 
 
 def fp_mul(a, b):

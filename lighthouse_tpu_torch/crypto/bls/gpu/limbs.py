@@ -236,6 +236,7 @@ def _geq(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
 # torch ops in the JAX order, so the rounding is the same.
 _BARRETT_TOP_LIMB = 30
 _BARRETT_INV = np.float32((2.0 ** (BITS * _BARRETT_TOP_LIMB)) / float(P))
+_BASE_F32 = np.float32(BASE)
 
 
 def canon(x: torch.Tensor) -> torch.Tensor:
@@ -246,8 +247,7 @@ def canon(x: torch.Tensor) -> torch.Tensor:
     x = _truncate(_fold_round(x))
     x = x + on(_C_SHIFT, dev)
     x, _ = _scan_carry(x)
-    base = torch.tensor(float(BASE), dtype=torch.float32, device=dev)
-    inv = torch.tensor(float(_BARRETT_INV), dtype=torch.float32, device=dev)
+    base, inv = on(_BASE_F32, dev), on(_BARRETT_INV, dev)
     v_top = torch.zeros(x.shape[:-1], dtype=torch.float32, device=dev)
     for i in range(W - 1, _BARRETT_TOP_LIMB - 1, -1):
         v_top = v_top * base + x[..., i].to(torch.float32)

@@ -1,25 +1,29 @@
-// Warp-cooperative BLS12-381 field layer: the kernels of fp_mul and fp_sq
-// (a warp per row) and of miller_dbl_step, miller_add_step, fp12_mul and
-// fp12_cyclotomic_sq (a block per row) run on it.
+// Warp-cooperative BLS12-381 field layer: every kernel runs on it -- fp_mul
+// and fp_sq a warp per row; miller_dbl_step, miller_add_step, fp6_mul,
+// fp12_mul and fp12_cyclotomic_sq a block per row.
 //
-// The same integers as field.cuh, with one warp working on one Fp element
-// instead of one thread. A value in flight lives in the warp's registers,
-// `Limbs`: lane l holds limbs l, l + 32 and l + 64, every limb at or above
-// the value's width is zero. Operands of a column product live in shared
-// memory, where the block keeps its row state.
+// One warp works on one Fp element. A value in flight lives in the warp's
+// registers, `Limbs`: lane l holds limbs l, l + 32 and l + 64, every limb
+// at or above the value's width is zero. Operands of a column product live
+// in shared memory, where the block keeps its row state.
 //
-// BIT IDENTITY with field.cuh, step by step:
+// BIT IDENTITY with gpu/limbs.py and gpu/tower.py (and so with the JAX
+// text), step by step:
+//   * integer column sums are exact whatever the order (limbs.py's bounds
+//     keep every partial sum far below 2^31);
 //   * a carry round computes x'[i] = (x[i] & MASK) + (x[i-1] >> 12) from the
 //     values BEFORE the round (each lane takes its neighbour's carry by a
 //     shuffle of the pre-round value), and x'[w] = x[w-1] >> 12 falls out
-//     of the zero limbs above the width, so the widths need no bookkeeping;
-//   * fold gives lane j < 32 the sum x[j] + sum_r x[32+r] FOLD[r][j] in the
+//     of the zero limbs above the width, so the widths need no bookkeeping
+//     and nothing is truncated;
+//   * fold gives lane j < 32 the sum x[j] + sum_r x[32+r] FOLD_R[r][j] in the
 //     same order of r, then carry3 on width 32;
 //   * the schoolbook columns are summed over i in the same order (lane l
 //     owns columns l, l+32, l+64; b sits between zeros, so out-of-range
 //     terms add 0);
 //   * reduce, norm, add/sub, mul_small and lincomb keep limbs.py's widths
-//     and order (carry3, fold, fold; carry3, fold; one fold of the sum).
+//     and order (carry3, fold, fold; carry3, fold; one fold of the sum);
+//     the Fp2 and Fp6 pieces keep the order of kernels.fp6_mul_plain.
 //
 // SYNCHRONISATION. Every lane of a warp calls every function here (the
 // shuffles name the full warp). `store` and `set_pad` sync the warp before
@@ -178,7 +182,8 @@ struct Warp {
     return {sub(a.c0, a.c1), add(a.c0, a.c1)};
   }
 
-  // field.cuh fp2_mul: Karatsuba, three column products, two reductions
+  // tower.fp2_mul: Karatsuba with column sharing, three column products,
+  // two reductions
   __device__ __noinline__ L2 fp2_mul(const int* a, const int* b) const {
     set_pad(load(b));
     Limbs t0 = cols(a, pad);
@@ -205,9 +210,9 @@ struct Warp {
     return {c0, c1};
   }
 
-  // The six Fp2 products of field.cuh fp6_mul (Karatsuba) of the Fp6
-  // operands a, b: j = 0, 1, 2 the diagonal a_j b_j, then (a1+a2)(b1+b2),
-  // (a0+a1)(b0+b1), (a0+a2)(b0+b2)
+  // The six Fp2 products of tower.fp6_mul (Karatsuba, in the order of
+  // kernels.fp6_mul_plain) of the Fp6 operands a, b: j = 0, 1, 2 the
+  // diagonal a_j b_j, then (a1+a2)(b1+b2), (a0+a1)(b0+b1), (a0+a2)(b0+b2)
   __device__ __forceinline__ L2 fp6_mul_product(int j, const int* a,
                                                 const int* b) const {
     if (j < 3) return fp2_mul(a + j * F2, b + j * F2);
@@ -219,7 +224,7 @@ struct Warp {
 
   // Fp2 component k of fp6_mul from its six products prod = [t0 t1 t2 m0 m1
   // m2]: c0 = xi(m0 - t1 - t2) + t0, c1 = m1 - t0 - t1 + xi(t2),
-  // c2 = m2 - t0 - t2 + t1, in field.cuh's order
+  // c2 = m2 - t0 - t2 + t1, in fp6_mul_plain's order
   __device__ __forceinline__ L2 fp6_mul_combine(int k, const int* prod) const {
     L2 t0 = load2(prod), t1 = load2(prod + F2), t2 = load2(prod + 2 * F2);
     L2 m = load2(prod + (3 + k) * F2);

@@ -3,7 +3,7 @@
 // Replaces lighthouse_tpu/crypto/bls/tpu/pallas_kernels.py:fp_mul
 // (_mul_kernel via _mul_call) and :fp_sq (_sq_kernel via _sq_call):
 // schoolbook columns, carry3, two folds with FOLD_R, truncate -- bit-identical
-// to limbs.mul / limbs.sq (field.cuh says why).
+// to limbs.mul / limbs.sq (field_coop.cuh says why).
 //
 // What bounds it: latency. A row reads 2 x 140 bytes and writes 140; it
 // does ~1225 column products plus 2 x ~1300 fold products (~3.8k int32

@@ -16,7 +16,7 @@
 // fp12_mul_kernel: ONE BLOCK PER ROW (field_coop.cuh), 18 warps. The row's
 // a, b and every intermediate sit in shared memory (38,320 bytes with the
 // fold table and the per-warp scratch). Four phases, the block synced
-// between them, in field.cuh's fp12_mul/fp6_mul order: the Karatsuba
+// between them, in fp12_mul_plain's and fp6_mul_plain's order: the Karatsuba
 // operand sums x6 = a0 + a1, y6 = b0 + b1 (6 warps); the 18 Fp2 products
 // of the three Fp6 products a0 b0, a1 b1, x6 y6 (one warp each); the 9 Fp6
 // combines t0, t1, m; the 6 output slots c0 = t0 + v t1, c1 = m - t0 - t1.
@@ -28,26 +28,51 @@
 // warp each: the subs, the xi-multiplies and the adds, then the 3t -+ 2x
 // combine. Two Fp2-square latencies and a launch per square.
 //
-// fp6_mul_kernel: still the simple design (one thread per row, the ragged
-// edge masked by the row test, Fp2 helpers not inlined, frames on the
-// local stack; field.cuh).
+// fp6_mul_kernel: ONE BLOCK PER ROW (field_coop.cuh), 6 warps: phases 2-3
+// of fp12_mul_kernel for one Fp6 product. The row's a and b sit in shared
+// memory (15,688 bytes with the fold table and the per-warp scratch);
+// phase 1 runs the six Fp2 products, one warp each; phase 2 the three
+// combines, one warp each, written straight to the output. One Fp2-product
+// latency and three short add chains. The main path calls it once a
+// verify, on the two rows of fp12_inv's stacked product.
 #include "field_coop.cuh"
 
 namespace {
 
-constexpr int THREADS = 64;
+constexpr int FP6_NW = 6;  // warps per block: the six Fp2 products at once
 
-__global__ void fp6_mul_kernel(int* __restrict__ out, const int* __restrict__ a,
-                               const int* __restrict__ b, int n) {
-  int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  int A[lh::F6], B[lh::F6];
-  for (int i = 0; i < lh::F6; ++i) {
-    A[i] = a[row * lh::F6 + i];
-    B[i] = b[row * lh::F6 + i];
+// One row of fp6_mul in shared memory; prod holds the six products in
+// fp6_mul_product order
+struct Fp6MulRow {
+  int a[lh::F6], b[lh::F6], prod[6 * lh::F2];
+  int table[lh::NFOLD * lh::NL];
+  int pad[FP6_NW][lh::coop::PAD], tmp[FP6_NW][lh::W];
+  int opa[FP6_NW][lh::F2], opb[FP6_NW][lh::F2];
+};
+
+// tower.fp6_mul (_k6_mul): Karatsuba, in the order of kernels.fp6_mul_plain
+__global__ void __launch_bounds__(FP6_NW * 32)
+fp6_mul_kernel(int* __restrict__ out, const int* __restrict__ a,
+               const int* __restrict__ b) {
+  using lh::F2;
+  using lh::F6;
+  using lh::coop::store2;
+  __shared__ Fp6MulRow s;
+  const int row = blockIdx.x, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < F6; i += blockDim.x) {
+    s.a[i] = a[row * F6 + i];
+    s.b[i] = b[row * F6 + i];
   }
-  lh::fp6_mul(A, A, B);
-  for (int i = 0; i < lh::F6; ++i) out[row * lh::F6 + i] = A[i];
+  lh::coop::init_block(s.table, &s.pad[0][0], FP6_NW);
+  __syncthreads();
+  const lh::coop::Warp w{s.table, s.pad[warp], s.tmp[warp], s.opa[warp], s.opb[warp]};
+
+  // phase 1: product j = warp of fp6_mul(a, b)
+  store2(s.prod + warp * F2, w.fp6_mul_product(warp, s.a, s.b));
+  __syncthreads();
+
+  // phase 2: Fp2 slot k = warp of the product (warps 0-2)
+  if (warp < 3) store2(out + row * F6 + warp * F2, w.fp6_mul_combine(warp, s.prod));
 }
 
 constexpr int MUL_NW = 18;  // warps per block: the 18 Fp2 products at once
@@ -64,7 +89,7 @@ struct Fp12MulRow {
 };
 
 // tower.fp12_mul (_k12_mul): Karatsuba over three Fp6 products, in the
-// order of field.cuh's one-thread fp6_mul and kernels.fp12_mul_plain
+// order of kernels.fp12_mul_plain and fp6_mul_plain
 __global__ void __launch_bounds__(MUL_NW * 32)
 fp12_mul_kernel(int* __restrict__ out, const int* __restrict__ a,
                 const int* __restrict__ b) {
@@ -184,14 +209,12 @@ fp12_cyclo_sq_kernel(int* __restrict__ out, const int* __restrict__ a) {
   }
 }
 
-int blocks(int n) { return (n + THREADS - 1) / THREADS; }
-
 }  // namespace
 
 extern "C" int lh_fp6_mul(void* out, const void* a, const void* b, int n,
                           void* stream) {
-  fp6_mul_kernel<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
-      (int*)out, (const int*)a, (const int*)b, n);
+  fp6_mul_kernel<<<n, FP6_NW * 32, 0, (cudaStream_t)stream>>>(
+      (int*)out, (const int*)a, (const int*)b);
   return (int)cudaGetLastError();
 }
 

@@ -77,6 +77,37 @@ def test_launch_rows_tally_by_row_count_and_reset(monkeypatch):
     assert rows["fp_mul"] == {}
 
 
+def test_launch_rows_tally_graph_replays_not_captures(monkeypatch):
+    """A launch made inside a graph capture is recorded, neither counted
+    nor tallied; each replay of the graph counts and tallies its capture's
+    record, rows and all; both functions are put back when the block
+    ends."""
+    def stub(what, lib, fn, outs, ins, n):  # the launch function's counting
+        log = getattr(K._capture, "log", None)
+        if log is None:
+            K.LAUNCHES[what] += 1
+        else:
+            log.append((what, n))
+
+    monkeypatch.setattr(K, "_launch", stub)
+    monkeypatch.setattr(K, "LAUNCHES", dict.fromkeys(K.LAUNCHES, 0))
+    replay = K.count_replay
+    with CS.row_tally(K) as tally:
+        with K.recording() as record:
+            K._launch("fp_sq", "fp", "lh_fp_sq", [], [], 1)
+            K._launch("fp12_mul", "tower", "lh_fp12_mul", [], [], 64)
+        assert record == [("fp_sq", 1), ("fp12_mul", 64)]
+        assert not any(K.LAUNCHES.values())
+        assert not any(tally.values())
+        for _ in range(2):
+            K.count_replay(tuple(record))
+        K._launch("fp_sq", "fp", "lh_fp_sq", [], [], 1)
+    assert K._launch is stub and K.count_replay is replay
+    assert K.LAUNCHES["fp_sq"] == 3 and K.LAUNCHES["fp12_mul"] == 2
+    rows = CS.launch_rows(tally)
+    assert rows["fp_sq"] == {"1": 3} and rows["fp12_mul"] == {"64": 2}
+
+
 def test_build_directory_keyed_by_its_sources(monkeypatch, tmp_path):
     """The kernels build into a directory named by a hash of the sources,
     so an edited source never loads the libraries built before it."""

@@ -225,6 +225,31 @@ def test_fp12_mul_kernel_on_card_equals_plain(rows, kind):
     assert torch.equal(got.cpu(), K.fp12_mul_plain(a.cpu(), b.cpu()))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["lazy", "maximal", "broadcast"])
+@pytest.mark.parametrize("rows", [1, 2, 3, 1025])
+def test_fp6_mul_kernel_on_card_equals_plain(rows, kind):
+    """The block-per-row Fp6 product equals its plain version on the card
+    at fp12_inv's 2 rows, at 1 and 3 and at a ragged 1025: on seeded lazy
+    limbs, with every limb at 2^12, and with one row of b broadcast over
+    every row of a (fp12_inv's stacked call); the launch is counted."""
+    dev = need_card()
+    rng = np.random.default_rng(51)
+    a = torch.as_tensor(lazy(rng, (rows, 3, 2))).to(dev)
+    b = torch.as_tensor(lazy(rng, (rows, 3, 2))).to(dev)
+    if kind == "maximal":
+        a, b = torch.full_like(a, 1 << 12), torch.full_like(b, 1 << 12)
+    elif kind == "broadcast":
+        b = b[:1]
+    before = K.LAUNCHES["fp6_mul"]
+    got = K.fp6_mul(a, b)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fp6_mul"] == before + 1
+    assert got.shape == a.shape
+    assert torch.equal(got, K.fp6_mul_plain(a, b))
+    assert torch.equal(got.cpu(), K.fp6_mul_plain(a.cpu(), b.cpu()))
+
+
 def test_c_entry_points_match_the_bindings():
     """Every C entry point bound in kernels.ENTRY is defined in its
     library's source with that many pointer arguments before `int n,
