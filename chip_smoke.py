@@ -56,6 +56,25 @@ Phases (each one fails the run with a nonzero exit):
              same bucket False, then honest True again, all replayed;
              capture seconds and replay ms per stage, and the card memory
              the graphs hold
+  pipeline   the asynchronous seam (warm_compile first for any of its
+             buckets not yet captured): one submit of each batch behind a
+             ~1 s spinning kernel returns in well under the spin (a
+             pageable copy under the same spin waits it out); 8 batches
+             alternating gossip and aggregate (the second gossip forged)
+             through api.verify_signature_sets_async at depth 2, every future's
+             verdict equal to the sync verify's, and future N not done
+             right after submit(N+1) returns for at least 6 of the 7
+             (dispatch reads no device value); again with the keys tagged
+             into the table when the table phase ran; the scheduler
+             (LIGHTHOUSE_TPU_CONT_BATCH=1) merging four 16-set gossip
+             entries on the block, aggregate, unaggregated and sync lanes
+             into one launch padded to 64 with no new graph captured, and
+             with one entry forged: one merge fallback, per-entry verdicts
+             equal to the unmerged ones, still no capture; the fallback
+             backend over a primary that fails its first call: the card's
+             verdict, bls_backend_fallback_total + 1, the cpu oracle's
+             seconds, and torch_cuda active again once the breaker's
+             denied budget (2) is spent
 
 The entry points run each stage as a CUDA graph: in every path the first
 verify of a batch captures its stages and the verifies after it replay
@@ -91,7 +110,7 @@ import time
 
 ALL_PHASES = (
     "build", "kernels", "parity", "gossip", "aggregate", "warm", "table",
-    "aggverify", "graphs",
+    "aggverify", "graphs", "pipeline",
 )
 
 # H100 SXM peaks. HBM: 3.35 TB/s (NVIDIA data sheet). int32: the CUDA C++
@@ -679,10 +698,11 @@ def run_path(torch, K, TP, B, api, label, sets, forged, pairs, launches, card,
 TABLE_ROWS = 1 << 20  # validators: the order of the mainnet registry
 
 
-def phase_table(torch, K, TP, B, api, batches, launches, card):
+def phase_table(torch, K, TP, B, api, batches, launches, card, tagged_out):
     """A 2^20-row PubkeyTable on the card, filled by tiling the batches'
     keys and filler keys; each batch again with its keys tagged by indices
-    spread over the whole table (row r holds base key r % len(base))."""
+    spread over the whole table (row r holds base key r % len(base)). The
+    tagged batches go into `tagged_out[label]` as (sets, forged)."""
     import numpy as np
 
     base, pos = [], {}
@@ -724,6 +744,7 @@ def phase_table(torch, K, TP, B, api, batches, launches, card):
         label = "table-" + label
         tagged = tag_sets(api, sets, table, spreader(sets))
         tagged_forged = tag_sets(api, forged, table, spreader(forged))
+        tagged_out[label[len("table-"):]] = (tagged, tagged_forged)
         idx = np.asarray([[k.validator_index for k in s.pubkeys] for s in tagged])
         need(idx.min() < TABLE_ROWS // 16 and idx.max() > TABLE_ROWS * 15 // 16,
              f"{label}: indices {idx.min()}..{idx.max()} do not span the table")
@@ -977,6 +998,266 @@ def phase_warm(torch, B, card):
                 memory_after=after)
 
 
+# --- the asynchronous seam: pipeline, scheduler, fallback -------------------
+
+STREAM_K = 8  # batches in each pipeline stream
+# the bucketed shapes the pipeline phase runs: the gossip batch (per-set),
+# the aggregate batch (grid), the scheduler's 16-set entries at their
+# natural bucket (per-set), and the 4-set fallback batch
+PIPELINE_BUCKETS = ((64, 4, 64), (1024, 4, 32), (16, 4, 16), (4, 4, 4))
+
+
+def graph_count(B) -> int:
+    """Stage graphs captured so far, over every stage and shape."""
+    return sum(len(g.graphs) for g in (
+        B._hash_graphs, B._prep_graphs, B._miller_graphs, B._final_graphs,
+        B._group_graphs, B._agg_prep_graphs))
+
+
+def pipeline_stream(torch, K, TP, api, P, label, stream, launches, card):
+    """`stream` ([(sets, pairs)], alternating gossip and aggregate) through
+    api.verify_signature_sets_async at depth 2: each future's verdict
+    equals the sync verify's of the same sets and seed, and right after
+    submit(N+1) returns, future N is not done for at least K - 2 batches
+    (a host sync in dispatch would have finished it). Launch counts are
+    reset just before the stream's submits and read after its results."""
+    k = len(stream)
+    seeds = [60 + i for i in range(k)]
+    sync_verdicts, sync_secs = [], []
+    for (sets, _), seed in zip(stream, seeds):
+        t0 = time.perf_counter()
+        sync_verdicts.append(api.verify_signature_sets(sets, seed=seed))
+        sync_secs.append(time.perf_counter() - t0)
+    P.configure(depth=2)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    futures, submit_ms, not_done = [], [], []
+    t_start = time.perf_counter()
+    for (sets, _), seed in zip(stream, seeds):
+        t0 = time.perf_counter()
+        futures.append(api.verify_signature_sets_async(sets, seed=seed))
+        submit_ms.append((time.perf_counter() - t0) * 1e3)
+        if len(futures) > 1:
+            not_done.append(not futures[-2].done())
+    verdicts = [f.result() for f in futures]
+    wall = time.perf_counter() - t_start
+    counts = dict(K.LAUNCHES)
+    want = {}
+    for _, pairs in stream:
+        for name, n in expected_launches(TP, pairs).items():
+            want[name] = want.get(name, 0) + n
+    n_sets = sum(len(sets) for sets, _ in stream)
+    log(f"{label}: {k} batches ({n_sets} sets) at depth 2, verdicts {verdicts}, "
+        f"sync {sync_verdicts}; future N not done after submit(N+1): "
+        f"{sum(not_done)} of {k - 1}")
+    log(f"{label}: host ms per submit {[round(x, 2) for x in submit_ms]}; stream "
+        f"wall {wall:.3f} s, {n_sets / wall:.1f} sets/s; sum of the {k} sync "
+        f"latencies {sum(sync_secs):.3f} s ({n_sets / sum(sync_secs):.1f} sets/s); "
+        f"card: {card}")
+    check_launches(label, counts, want)
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    need(verdicts == sync_verdicts,
+         f"{label}: futures {verdicts} != sync verdicts {sync_verdicts}")
+    need(sum(not_done) >= k - 2,
+         f"{label}: future N already done right after submit(N+1) in "
+         f"{not_done.count(False)} of {k - 1} batches (a host sync in dispatch?)")
+    return dict(batches=k, sets=n_sets, submit_ms=submit_ms, wall_seconds=wall,
+                sets_per_s=n_sets / wall, sync_seconds=sync_secs,
+                sync_sum_seconds=sum(sync_secs), not_done_after_next=not_done,
+                verdicts=verdicts, launches=counts)
+
+
+SPIN_CYCLES = int(2e9)  # one spinning kernel of ~1 s at the H100's clocks
+
+
+def busy_card_dispatch(torch, api, P, batches, card):
+    """Submits while the card is busy: one spinning kernel ahead of them
+    on the stream (`torch.cuda._sleep`), then one submit of each batch; a
+    submit that waited on the card would take the spin's time. A pageable
+    host-to-device copy under the same spin shows what such a wait looks
+    like."""
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        t0 = time.perf_counter()
+        out = fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return out, (t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3
+
+    _, _, spin_ms = timed(lambda: None)
+    _, pageable_ms, _ = timed(lambda: torch.zeros(1 << 16).to("cuda"))
+    need(pageable_ms > spin_ms / 2,
+         f"busy card: a pageable copy took {pageable_ms:.1f} ms under a "
+         f"{spin_ms:.1f} ms spin (the spin does not hold the stream?)")
+    out = dict(spin_ms=spin_ms, pageable_copy_ms=pageable_ms)
+    P.configure(depth=2)
+    for label in ("gossip", "aggregate"):
+        sets = batches[label][0]
+        fut, submit_ms, total_ms = timed(
+            lambda: api.verify_signature_sets_async(sets, seed=70))
+        need(fut.result(), f"busy card: {label} batch rejected")
+        need(submit_ms < spin_ms / 4,
+             f"busy card: submitting the {label} batch took {submit_ms:.1f} ms "
+             f"under a {spin_ms:.1f} ms spin (dispatch waited on the card)")
+        out[label] = dict(submit_ms=submit_ms, spin_and_verify_ms=total_ms)
+    log(f"pipeline-busy: under a {spin_ms:.1f} ms spin a pageable copy took "
+        f"{pageable_ms:.1f} ms of host time, a gossip submit "
+        f"{out['gossip']['submit_ms']:.1f} ms, an aggregate submit "
+        f"{out['aggregate']['submit_ms']:.1f} ms; card: {card}")
+    return out
+
+
+def scheduler_run(api, S, B, M, label, entries, lanes, seed0):
+    """`entries` on `lanes` through the async api with continuous batching
+    on: a fresh scheduler over a fresh depth-2 pipeline; returns the
+    verdicts, the scheduler, the seconds, and the graphs captured and
+    shape-registry misses it caused."""
+    S.configure()
+    graphs, misses = graph_count(B), M.TPU_COMPILE_CACHE_MISSES.value
+    t0 = time.perf_counter()
+    futs = [api.verify_signature_sets_async(sets, seed=seed0 + i, lane=lane, slot=7)
+            for i, (sets, lane) in enumerate(zip(entries, lanes))]
+    verdicts = [f.result() for f in futs]
+    secs = time.perf_counter() - t0
+    sched = S.default_scheduler()
+    captured = graph_count(B) - graphs
+    new_shapes = M.TPU_COMPILE_CACHE_MISSES.value - misses
+    log(f"{label}: verdicts {verdicts}, {secs:.3f} s; launches "
+        f"{sched.stats['launches']}, real sets {sched.stats['real_sets']}, padded "
+        f"sets {sched.stats['pad_sets']}, merges {sched.stats['merges']}, merge "
+        f"fallbacks {sched.stats['merge_fallbacks']}; launch log "
+        f"{list(sched.launch_log)}; graphs captured {captured}, new shapes "
+        f"{new_shapes}")
+    return verdicts, sched, secs, captured, new_shapes
+
+
+def phase_pipeline(torch, K, TP, B, api, batches, tagged, launches, card):
+    """The asynchronous seam on the card: (a) a stream of STREAM_K batches
+    through the pipeline, with host-packed keys and then with keys tagged
+    into the 2^20-row table (when the table phase ran); (b) the
+    continuous-batching scheduler merging four 16-set lanes into one
+    launch padded to 64, honest and with one forged entry (the merge
+    fallback); (c) the fallback backend over a primary that fails once."""
+    from lighthouse_tpu_torch.crypto.bls import pipeline as P
+    from lighthouse_tpu_torch.crypto.bls import scheduler as S
+    from lighthouse_tpu_torch.crypto.bls.backends import fallback as FB
+    from lighthouse_tpu_torch.resilience.primitives import CircuitBreaker, EventLog
+    from lighthouse_tpu_torch.utils import metrics as M
+
+    out = {}
+    cold = [b for b in PIPELINE_BUCKETS
+            if b + ((b[0],) if b[2] < b[0] else (0,)) not in B._seen_shape_buckets]
+    if cold:
+        report = B.warm_compile(buckets=cold)
+        log(f"pipeline: warmed {[r['bucket'] for r in report]} in "
+            f"{sum(r['seconds'] for r in report):.1f} s")
+    gossip, forged_gossip, _ = batches["gossip"]
+    aggregate, _, _ = batches["aggregate"]
+    out["busy"] = busy_card_dispatch(torch, api, P, batches, card)
+
+    def alternating(g, bad_g, a):
+        # gossip, aggregate, gossip (forged), aggregate, ...
+        return [((bad_g if i == 2 else g), 65) if i % 2 == 0 else (a, 33)
+                for i in range(STREAM_K)]
+
+    out["stream"] = pipeline_stream(
+        torch, K, TP, api, P, "pipeline-stream",
+        alternating(gossip, forged_gossip, aggregate), launches, card)
+    if tagged:
+        (t_gossip, t_forged), (t_aggregate, _) = tagged["gossip"], tagged["aggregate"]
+        need(B.prepack_indices(t_gossip) is not None,
+             "pipeline: table-tagged gossip batch has no index pack")
+        out["stream_table"] = pipeline_stream(
+            torch, K, TP, api, P, "pipeline-stream-table",
+            alternating(t_gossip, t_forged, t_aggregate), launches, card)
+    else:
+        log("pipeline: table phase not run, no table-tagged stream")
+
+    lanes = ("block", "aggregate", "unaggregated", "sync")
+    q = len(gossip) // 4  # 16 sets an entry: natural bucket (16, 4, 16)
+    entries = [gossip[q * i:q * (i + 1)] for i in range(4)]
+    bad_entries = [forged_gossip[q * i:q * (i + 1)] for i in range(4)]
+    saved = os.environ.get("LIGHTHOUSE_TPU_CONT_BATCH")
+    os.environ["LIGHTHOUSE_TPU_CONT_BATCH"] = "1"
+    try:
+        P.configure(depth=2)
+        verdicts, sched, secs, captured, new_shapes = scheduler_run(
+            api, S, B, M, "pipeline-sched", entries, lanes, 80)
+        need(verdicts == [True] * 4, f"pipeline-sched: verdicts {verdicts}")
+        need(sched.stats["launches"] == 1 and sched.launch_log[0]["lanes"] == lanes,
+             f"pipeline-sched: launches {sched.stats}, log {list(sched.launch_log)}")
+        need(captured == 0 and new_shapes == 0,
+             f"pipeline-sched: the merged launch captured {captured} graphs, "
+             f"{new_shapes} new shapes")
+        out["sched"] = dict(seconds=secs, stats=dict(sched.stats),
+                            captured=captured)
+        unmerged = [api.verify_signature_sets(e, seed=90 + i)
+                    for i, e in enumerate(bad_entries)]
+        verdicts, sched, secs, captured, new_shapes = scheduler_run(
+            api, S, B, M, "pipeline-sched-forged", bad_entries, lanes, 90)
+        need(sched.stats["merge_fallbacks"] == 1,
+             f"pipeline-sched-forged: stats {sched.stats}")
+        need(verdicts == unmerged == [True, False, True, True],
+             f"pipeline-sched-forged: verdicts {verdicts}, unmerged {unmerged}")
+        need(captured == 0 and new_shapes == 0,
+             f"pipeline-sched-forged: {captured} graphs captured, {new_shapes} "
+             "new shapes (the re-verifies' natural bucket is warmed)")
+        out["sched_forged"] = dict(seconds=secs, stats=dict(sched.stats),
+                                   captured=captured)
+    finally:
+        S.configure()
+        if saved is None:
+            os.environ.pop("LIGHTHOUSE_TPU_CONT_BATCH")
+        else:
+            os.environ["LIGHTHOUSE_TPU_CONT_BATCH"] = saved
+
+    sets = parity_sets(api)[0]
+
+    class FailsOnce:
+        """torch_cuda, except that its first call raises."""
+
+        calls = 0
+
+        def verify_signature_sets(self, sets, seed=None, device=None):
+            self.calls += 1
+            if self.calls == 1:
+                raise RuntimeError("injected device fault")
+            return B.verify_signature_sets(sets, seed=seed, device=device)
+
+    want = B.verify_signature_sets(sets, seed=100)
+    events = EventLog()
+    fb = FB.configure(primary=FailsOnce(), events=events, breaker=CircuitBreaker(
+        failure_threshold=1, denied_budget=2, half_open_probes=1,
+        name="bls_primary", events=events))
+    api.set_backend("fallback")
+    try:
+        before = M.BLS_FALLBACK_EVENTS.value
+        names, oracle_secs = [], []
+        for i in range(3):  # fault -> oracle, denied -> oracle, probe -> card
+            t0 = time.perf_counter()
+            got = api.verify_signature_sets(sets, seed=100)
+            secs = time.perf_counter() - t0
+            need(got == want, f"pipeline-fallback: call {i} verdict {got} != {want}")
+            names.append(fb.active_backend_name())
+            if i < 2:
+                oracle_secs.append(secs)
+        fallbacks = M.BLS_FALLBACK_EVENTS.value - before
+    finally:
+        api.set_backend("torch_cuda")
+    need(fallbacks == 1, f"pipeline-fallback: bls_backend_fallback_total +{fallbacks}")
+    need(names == ["cpu", "cpu", "torch_cuda"],
+         f"pipeline-fallback: active backends {names}")
+    log(f"pipeline-fallback: 4-set batch verdict {want} on the card and through "
+        f"the fallback; bls_backend_fallback_total +{fallbacks:g}; active "
+        f"{names}; cpu oracle {[round(x, 3) for x in oracle_secs]} s; events "
+        f"{events.kinds()}")
+    out["fallback"] = dict(verdict=want, active=names, oracle_seconds=oracle_secs,
+                           events=events.kinds())
+    return out
+
+
 def gossip_sets(api):
     """64 single-pubkey sets over 64 distinct messages, plus a forged copy
     with one signature over the wrong message."""
@@ -1051,14 +1332,16 @@ def main(argv=None) -> int:
         parity = parity_sets(api) + (5,)  # 5 Miller pairs
     if "parity" in phases:
         phase_parity(torch, api, B, parity[0])
-    use_gossip = any(p in phases for p in ("gossip", "table", "aggverify", "graphs"))
-    use_aggregate = any(p in phases for p in ("aggregate", "table", "graphs"))
+    use_gossip = any(p in phases for p in ("gossip", "table", "aggverify", "graphs",
+                                           "pipeline"))
+    use_aggregate = any(p in phases for p in ("aggregate", "table", "graphs",
+                                              "pipeline"))
     if use_gossip or use_aggregate or "warm" in phases:
         api.set_backend("torch_cuda")
         # (sets, forged, Miller pairs): the gossip batch takes the per-set
         # path (64 + 1 pairs), the aggregate batch the message-aggregated
         # one (32 messages + 1 pairs)
-        batches = {}
+        batches, tagged = {}, {}
         if use_gossip:
             t0 = time.perf_counter()
             batches["gossip"] = gossip_sets(api) + (65,)
@@ -1076,7 +1359,8 @@ def main(argv=None) -> int:
         if "warm" in phases:
             paths["warm"] = phase_warm(torch, B, card)
         if "table" in phases:
-            paths.update(phase_table(torch, K, TP, B, api, batches, launches, card))
+            paths.update(phase_table(torch, K, TP, B, api, batches, launches, card,
+                                     tagged))
         if "aggverify" in phases:
             paths["aggverify"] = phase_aggverify(
                 torch, K, TP, B, api, batches["gossip"], launches, card)
@@ -1084,6 +1368,9 @@ def main(argv=None) -> int:
             paths["graphs"] = phase_graphs(
                 torch, K, TP, B, CG, {"parity": parity, **batches},
                 launches, card)
+        if "pipeline" in phases:
+            paths["pipeline"] = phase_pipeline(
+                torch, K, TP, B, api, batches, tagged, launches, card)
         if use_gossip or use_aggregate:
             need(all(launches.get(k, 0) > 0 for k in K.LAUNCHES),
                  f"kernels not launched on the main path: {launches}")

@@ -6,12 +6,25 @@ Port of lighthouse_tpu/crypto/bls/api.py for the PyTorch/CUDA package:
 `verify_signature_sets()` (reference crypto/bls/src/lib.rs:99-140) and
 `aggregate_verify()`.
 
-One backend so far: ``torch_cuda``, the GPU batch verifier
-(backends/torch_cuda.py). It runs on the card unless the caller passes
-``device="cpu"`` (to `set_backend` or to `verify_signature_sets`), which
-runs every kernel's plain PyTorch version instead. Batches whose keys are
-all tagged with one device table (`validator_index`, `table`) gather
-their pubkey rows on the device by index.
+Backends (selected via `set_backend` / LIGHTHOUSE_TPU_BLS_BACKEND):
+
+  * ``torch_cuda`` -- the GPU batch verifier (backends/torch_cuda.py), the
+                      default. It runs on the card unless the caller passes
+                      ``device="cpu"`` (to `set_backend` or to an entry
+                      point), which runs every kernel's plain PyTorch
+                      version instead. Batches whose keys are all tagged
+                      with one device table (`validator_index`, `table`)
+                      gather their pubkey rows on the device by index.
+  * ``cpu``        -- pure-Python oracle pairing (the milagro-equivalent)
+  * ``fake``       -- always-valid stub (fake_crypto)
+  * ``fallback``   -- torch_cuda behind a circuit breaker, degrading to cpu
+                      on device faults and re-probing back
+                      (backends/fallback.py); chosen by name only
+
+`verify_signature_sets_async` is the pipelined entry point: a future per
+batch (crypto/bls/pipeline.py), or with a named lane and
+LIGHTHOUSE_TPU_CONT_BATCH=1 a place in the continuous-batching scheduler
+(crypto/bls/scheduler.py).
 
 Keys and signatures carry their affine oracle points plus compressed bytes;
 group membership is enforced at `PublicKey` construction while signatures
@@ -20,6 +33,7 @@ are subgroup-checked inside verification (as blst.rs:72-82 does).
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 from . import curve_ref as C
@@ -262,10 +276,24 @@ class SignatureSet:
         return cls(signature, list(pubkeys), bytes(message))
 
 
+def key_validate_enabled() -> bool:
+    """G1 key_validate coverage at the verification and import seams:
+    every pubkey that did NOT come through `PublicKey.from_bytes` gets
+    an infinity + on-curve + r-torsion check before it can influence a
+    pairing (low-order G1 components are pairing-INVISIBLE — e(T, Q) == 1
+    for any T in the cofactor subgroup — so only an explicit check
+    rejects them). ON unless LIGHTHOUSE_TPU_KEY_VALIDATE=0; the off
+    switch exists for adversary tests that prove their probes catch a
+    stack that skips key_validate. Read per call so tests flip it
+    without reimport."""
+    return os.environ.get("LIGHTHOUSE_TPU_KEY_VALIDATE", "1") != "0"
+
+
 def pubkey_subgroup_ok(pk) -> bool:
     """Duck-typed key_validate for one pubkey object: routes through the
     cached `PublicKey.subgroup_ok()` when present, else checks the bare
-    point. Used by the torch_cuda marshal seam."""
+    point. Shared by the cpu oracle's set checks, the torch_cuda marshal
+    seam, and the device pubkey-table import."""
     check = getattr(pk, "subgroup_ok", None)
     if check is not None:
         return bool(check())
@@ -281,11 +309,19 @@ _DEVICE = None
 
 
 def set_backend(name: str, device=None) -> None:
-    """Select the verification backend ('torch_cuda') and the device its
-    entry points run on (None: the card)."""
+    """Select the verification backend -- 'torch_cuda', 'cpu', 'fake', or
+    'fallback' (torch_cuda with circuit-breakered degradation to cpu) --
+    and the device its entry points run on (None: the card; cpu and fake
+    ignore it)."""
     global _BACKEND, _BACKEND_NAME, _DEVICE
     if name == "torch_cuda":
         from .backends import torch_cuda as mod
+    elif name == "cpu":
+        from .backends import cpu as mod
+    elif name == "fake":
+        from .backends import fake as mod
+    elif name == "fallback":
+        from .backends import fallback as mod
     else:
         raise BlsError(f"unknown BLS backend {name!r}")
     _BACKEND, _BACKEND_NAME, _DEVICE = mod, name, device
@@ -298,7 +334,7 @@ def get_backend_name() -> str:
 
 def _ensure_backend():
     if _BACKEND is None:
-        set_backend("torch_cuda")
+        set_backend(os.environ.get("LIGHTHOUSE_TPU_BLS_BACKEND", "torch_cuda"))
     return _BACKEND
 
 
@@ -314,6 +350,42 @@ def verify_signature_sets(sets, seed: int | None = None, device=None) -> bool:
     return backend.verify_signature_sets(
         sets, seed=seed, device=device if device is not None else _DEVICE
     )
+
+
+def verify_signature_sets_async(
+    sets,
+    seed: int | None = None,
+    lane: str | None = None,
+    slot: int | None = None,
+    device=None,
+):
+    """Pipelined batch-verify: marshal + enqueue now, answer later.
+
+    Returns a ``pipeline.VerifyFuture`` whose ``result()`` yields exactly
+    what ``verify_signature_sets`` would have returned for the same sets,
+    seed and device. Host marshalling for the NEXT batch overlaps device
+    work for this one (the stage graphs run asynchronously on the card);
+    futures resolve in submit order. Backends without an async dispatch
+    hook (cpu, fake, fallback) compute eagerly at submit -- same futures,
+    no behavioral difference.
+
+    When the caller names its `lane` (block / aggregate / unaggregated /
+    sync / speculative) and continuous batching is enabled
+    (`LIGHTHOUSE_TPU_CONT_BATCH=1`), the batch instead lands in the
+    deadline scheduler (crypto/bls/scheduler.py): it merges with other
+    queued lanes into the next padded warm-bucket launch, and `slot`
+    anchors its per-lane time-to-verdict histogram on the slot clock.
+    The returned ``ScheduledVerify`` duck-types VerifyFuture exactly.
+    """
+    from . import scheduler as bls_scheduler
+
+    if lane is not None and bls_scheduler.enabled():
+        return bls_scheduler.default_scheduler().submit(
+            sets, lane=lane, seed=seed, slot=slot, device=device
+        )
+    from .pipeline import default_pipeline
+
+    return default_pipeline().submit(sets, seed=seed, device=device)
 
 
 def verify(signature: Signature, pubkeys, message: bytes, device=None) -> bool:

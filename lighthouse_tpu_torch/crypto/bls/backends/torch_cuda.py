@@ -25,23 +25,36 @@ Also here: `aggregate_verify` (the spec's AggregateVerify through the same
 stages plus `_stage_agg_prep`), and the device-resident validator
 `PubkeyTable` with the index-gather marshalling route (`_common_table`,
 `prepack_indices`, `_marshal_batch(index_pack=, pad_to=)`) and the
-keyword duck type `dispatch_verify_signature_sets` that the JAX
-backend's pipeline and scheduler call.
+keyword duck type `dispatch_verify_signature_sets` that the pipeline and
+the scheduler (crypto/bls/pipeline.py, scheduler.py) call.
+
+Dispatch never reads a device value: the host arrays go to the card from
+pinned memory with `non_blocking=True`, and the verdict is a zero-dim
+device bool (the sync entry point reads it with `bool()`; the pipeline
+through a pinned copy behind an event). Two switches,
+read per call, match the JAX backend's: `LIGHTHOUSE_TPU_MSG_AGG=0` keeps
+every batch on the per-set path, `LIGHTHOUSE_TPU_KEY_VALIDATE=0` skips
+the host key_validate (adversary tests only). The marshal/dispatch seam
+feeds the JAX backend's metric families (utils/metrics.py), opens its
+`bls_marshal`/`bls_dispatch` spans (utils/tracing.py) and records
+"dispatch" and "warm" rows on the launch ledger (obs/ledger.py).
 
 Not yet in the port (see ROADMAP.md): the device mesh (so no sharded
-table), the monolithic program, the pipeline and scheduler objects,
-metrics/tracing/launch ledger, the speculation correction and the
+table), the monolithic program, the speculation correction and the
 windowed ladder.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ....obs import ledger as launch_ledger
+from ....utils import metrics, tracing
 from .. import aggregation as AG
 from ..constants import G1_X as _G1_X, G1_Y as _G1_Y, P as _P
 from ..gpu import curve as TC
@@ -67,6 +80,18 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array as a tensor on `dev`. To the card it goes from pinned
+    memory with non_blocking=True: a copy from pageable memory would
+    synchronize the stream, and so wait for every batch already queued.
+    The pinned buffer goes back to PyTorch's host allocator, which keeps
+    it until the copy has run."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
 
 
 # --- packing helpers (cached on the api objects) ---------------------------
@@ -269,28 +294,26 @@ def marshalled_from_numpy(arrays: dict, device) -> Marshalled:
     """Device tensors from the numpy fields of a marshalled batch in the
     `_tpu_limbs` layout (u, h_idx, pk, sig, scalars, real, grid_idx,
     grid_real; the grid may be None). Carries the JAX backend's batch
-    across, and is this backend's own last marshalling step."""
+    across, and is this backend's own last marshalling step. The set and
+    message counts come from the dict, else from the host arrays: no
+    device value is read."""
     dev = resolve_device(device)
-
-    def t(name, dtype):
-        a = arrays.get(name)
-        if a is None:
-            return None
-        return torch.as_tensor(np.asarray(a).astype(dtype)).to(dev)
-
-    u = t("u", np.int32)
-    real = t("real", np.bool_)
+    host = {
+        name: None if arrays.get(name) is None
+        else np.asarray(arrays[name]).astype(dtype)
+        for name, dtype in (
+            ("u", np.int32), ("h_idx", np.int64), ("pk", np.int32),
+            ("sig", np.int32), ("scalars", np.int64), ("real", np.bool_),
+            ("grid_idx", np.int64), ("grid_real", np.bool_),
+        )
+    }
+    n_sets = arrays.get("n_sets")
+    n_messages = arrays.get("n_messages")
+    t = {name: None if a is None else _to_device(a, dev) for name, a in host.items()}
     return Marshalled(
-        u=u,
-        h_idx=t("h_idx", np.int64),
-        pk=t("pk", np.int32),
-        sig=t("sig", np.int32),
-        scalars=t("scalars", np.int64),
-        real=real,
-        grid_idx=t("grid_idx", np.int64),
-        grid_real=t("grid_real", np.bool_),
-        n_sets=int(arrays.get("n_sets", int(real.sum()))),
-        n_messages=int(arrays.get("n_messages", u.shape[0])),
+        **t,
+        n_sets=int(host["real"].sum() if n_sets is None else n_sets),
+        n_messages=int(host["u"].shape[0] if n_messages is None else n_messages),
     )
 
 
@@ -349,15 +372,19 @@ def _marshal_batch(sets, device, seed=None, groups=None, index_pack=None,
     raises the set bucket to a warmed capacity: n_b becomes at least
     `_bucket(pad_to)`, and when the message bucket lands strictly between
     the floor and n_b, m_b is forced to n_b (padded rows are masked
-    infinities, so verdicts are unchanged)."""
+    infinities, so verdicts are unchanged). The grid is built only while
+    `_msg_agg_enabled()`, and the host key_validate runs only while
+    `_key_validate()`."""
+    key_validate = _key_validate()
     for s in sets:
         if not s.pubkeys or s.signature.point.inf:
             return None
-        # G1 key_validate: low-order components are pairing-invisible,
-        # so this host check is the only gate
-        for pk in s.pubkeys:
-            if not _api().pubkey_subgroup_ok(pk):
-                return None
+        if key_validate:
+            # G1 key_validate: low-order components are pairing-invisible,
+            # so this host check is the only gate
+            for pk in s.pubkeys:
+                if not _api().pubkey_subgroup_ok(pk):
+                    return None
 
     dev = resolve_device(device)
     n = len(sets)
@@ -370,7 +397,8 @@ def _marshal_batch(sets, device, seed=None, groups=None, index_pack=None,
             index_pack = None  # prepacked at the natural bucket; repack
 
     if groups is None:
-        groups = AG.group_sets(sets)
+        with tracing.span("bls_aggregate", sets=n):
+            groups = AG.group_sets(sets)
     m = groups.n_messages
     h_idx = np.zeros((n_b,), np.int32)
     h_idx[:n] = groups.set_message
@@ -388,20 +416,31 @@ def _marshal_batch(sets, device, seed=None, groups=None, index_pack=None,
         sig[i] = _sig_limbs(s.signature)
 
     grid_idx = grid_real = None
-    if m_b < n_b:
+    if _msg_agg_enabled() and m_b < n_b:
         grid_idx, grid_real = AG.group_grid(groups.members, m_b, grid_bucket(n_b))
 
     table = _common_table(sets)
     pk = None
     if table is None:
+        metrics.BLS_GATHER_MISSES.inc()
         pk = np.broadcast_to(_INF_G1, (n_b, k_b, 3, W)).copy()
         for i, s in enumerate(sets):
             for j, key in enumerate(s.pubkeys):
                 pk[i, j] = _pk_limbs(key)
+        pk_traffic = (pk,)
+    else:
+        metrics.BLS_GATHER_HITS.inc()
+        # steady state (validator_pubkey_cache.rs:10-23): the host ships
+        # validator indices; limb rows come from the device-resident table
+        idx, mask = index_pack if index_pack is not None else (
+            _pack_index_batch(sets, n_b, k_b))
+        pk_traffic = (idx, mask)
 
     scalars = _draw_weight_scalars(seed, n, n_b)
     real = np.zeros((n_b,), bool)
     real[:n] = True
+    grid_traffic = () if grid_idx is None else (grid_idx, grid_real)
+    _count_transfer(u, h_idx, sig, scalars, real, *grid_traffic, *pk_traffic)
     mb = marshalled_from_numpy(
         dict(
             u=u, h_idx=h_idx, pk=pk, sig=sig, scalars=scalars, real=real,
@@ -410,17 +449,12 @@ def _marshal_batch(sets, device, seed=None, groups=None, index_pack=None,
         dev,
     )
     if table is not None:
-        # steady state (validator_pubkey_cache.rs:10-23): the host ships
-        # validator indices; limb rows come from the device-resident table
-        idx, mask = index_pack if index_pack is not None else (
-            _pack_index_batch(sets, n_b, k_b))
         rows = table.gather(idx)
         if rows.device != dev:
             raise ValueError(
                 f"pubkey table on {rows.device}, batch marshalled for {dev}")
         mb.pk = torch.where(
-            torch.as_tensor(mask).to(dev)[..., None, None], rows,
-            L.on(_INF_G1, dev),
+            _to_device(mask, dev)[..., None, None], rows, L.on(_INF_G1, dev),
         )
     return mb
 
@@ -429,6 +463,25 @@ def _api():
     from .. import api
 
     return api
+
+
+def _msg_agg_enabled() -> bool:
+    """Message aggregation (the mega-pairing) is ON unless explicitly
+    disabled (LIGHTHOUSE_TPU_MSG_AGG=0); read per call so tests flip it
+    without reimport."""
+    return os.environ.get("LIGHTHOUSE_TPU_MSG_AGG", "1") != "0"
+
+
+def _key_validate() -> bool:
+    return _api().key_validate_enabled()
+
+
+def _count_transfer(*arrays) -> None:
+    """Host->device traffic of one batch (the numpy arrays actually
+    shipped; the gather route ships indices, not limb rows)."""
+    total = sum(int(a.nbytes) for a in arrays)
+    metrics.TPU_TRANSFER_BYTES.inc(total)
+    metrics.TPU_MARSHAL_BATCH_BYTES.set(total)
 
 
 def _draw_weight_scalars(seed, n: int, n_b: int, rng=None) -> np.ndarray:
@@ -452,6 +505,7 @@ def _draw_weight_scalars(seed, n: int, n_b: int, rng=None) -> np.ndarray:
             d = int(dup.sum())
             if not d:
                 break
+            metrics.BLS_WEIGHT_REDRAWS.inc(d)
             lo = rng.integers(0, 1 << 32, size=d, dtype=np.uint32)
             hi = rng.integers(0, 1 << 32, size=d, dtype=np.uint32) | 1
             scalars[:n][dup, 0] = lo
@@ -477,18 +531,46 @@ def run_marshalled(mb: Marshalled, timer=None) -> torch.Tensor:
     )
 
 
+def _count_pairs(n_sets: int, pairs: int, aggregated: bool) -> None:
+    """The pairing-cost telemetry of one dispatched batch: Miller-pair
+    count (the latency driver the aggregation attacks) and sets-per-pair
+    aggregation ratio (1.0-ish unaggregated; ~n/m on the mega-pairing)."""
+    metrics.BLS_MILLER_PAIRS.inc(pairs)
+    metrics.BLS_MILLER_PAIRS_LAST.set(pairs)
+    metrics.BLS_AGGREGATION_RATIO.set(n_sets / pairs)
+    if aggregated:
+        metrics.BLS_AGGREGATED_BATCHES.inc()
+
+
 def dispatch_verify_signature_sets(sets, seed=None, groups=None, index_pack=None,
                                    pad_to=None, device=None):
     """Marshal + enqueue, no host sync: a zero-dim device bool, or a plain
     False when a structural check already decided the batch. The keywords
-    are the JAX backend's pipeline/scheduler duck type: precomputed message
-    `groups`, the gather route's `index_pack`, and `pad_to`."""
-    mb = _marshal_batch(sets, device, seed=seed, groups=groups,
-                        index_pack=index_pack, pad_to=pad_to)
+    are the pipeline/scheduler duck type: precomputed message `groups`,
+    the gather route's `index_pack`, `pad_to`, and the `device`."""
+    with tracing.span("bls_marshal", sets=len(sets)):
+        mb = _marshal_batch(sets, device, seed=seed, groups=groups,
+                            index_pack=index_pack, pad_to=pad_to)
     if mb is None:
         return False
-    _count_shape_bucket(*_shape_bucket(mb))
-    return run_marshalled(mb)
+    n_b = int(mb.real.shape[0])
+    aggregated = mb.grid_idx is not None
+    # the aggregated path's Miller pairs ride the message bucket
+    pairs = (int(mb.u.shape[0]) if aggregated else n_b) + 1
+    new_key = _count_shape_bucket(*_shape_bucket(mb))
+    with tracing.span("bls_dispatch", bucket=n_b):
+        _count_pairs(mb.n_sets, pairs, aggregated=aggregated)
+        out = run_marshalled(mb)
+    launch_ledger.record(
+        "dispatch",
+        bucket=n_b,
+        real_sets=mb.n_sets,
+        padded_sets=n_b,
+        n_messages=mb.n_messages,
+        miller_pairs=pairs,
+        cache_hit=new_key is None,
+    )
+    return out
 
 
 def verify_signature_sets(sets, seed=None, device=None) -> bool:
@@ -503,9 +585,10 @@ def aggregate_verify(signature, pubkeys, messages, device=None, timer=None) -> b
     plus one trailing G2 point) is the aggregate's pair structure, so only
     `_stage_agg_prep` is its own. The structural verdicts (lengths, empty,
     infinity signature) are the api layer's. `timer` as in verify_device."""
-    for pk in pubkeys:
-        if not _api().pubkey_subgroup_ok(pk):
-            return False
+    if _key_validate():
+        for pk in pubkeys:
+            if not _api().pubkey_subgroup_ok(pk):
+                return False
     dev = resolve_device(device)
     run = timer or (lambda name, fn, *a: fn(*a))
     k = len(pubkeys)
@@ -517,12 +600,12 @@ def aggregate_verify(signature, pubkeys, messages, device=None, timer=None) -> b
         pk[i] = _pk_limbs(key)
     real = np.zeros((k_b,), bool)
     real[:k] = True
-    real = torch.as_tensor(real).to(dev)
+    real = _to_device(real, dev)
     pk_aff, pk_inf, sig_aff, sig_inf, sig_ok = run(
-        "agg_prep", _agg_prep_graphs, torch.as_tensor(pk).to(dev),
-        torch.as_tensor(_sig_limbs(signature)).to(dev), real,
+        "agg_prep", _agg_prep_graphs, _to_device(pk, dev),
+        _to_device(_sig_limbs(signature), dev), real,
     )
-    h_aff, h_inf = run("hash", _hash_graphs, torch.as_tensor(u).to(dev))
+    h_aff, h_inf = run("hash", _hash_graphs, _to_device(u, dev))
     fprod = run(
         "miller", _miller_graphs, pk_aff, pk_inf, h_aff, h_inf | ~real,
         sig_aff, sig_inf,
@@ -546,14 +629,17 @@ def _shape_bucket(mb: Marshalled) -> tuple:
 
 
 def _count_shape_bucket(n_b: int, k_b: int, m_b: int, g_b: int = 0):
-    """Register a batch's bucketed shape; returns the key when it is new
-    in this process (its stages are captured now), else None. In-process
-    only, without the JAX backend's metrics and disk registry: a CUDA
-    graph does not outlive its process, so there is nothing to persist."""
+    """Register a batch's bucketed shape on tpu_compile_cache_{hits,
+    misses}_total; returns the key when it is new in this process (its
+    stages are captured now), else None. In-process only, without the
+    JAX backend's disk registry: a CUDA graph does not outlive its
+    process, so there is nothing to persist."""
     key = (n_b, k_b, m_b, g_b)
     if key in _seen_shape_buckets:
+        metrics.TPU_COMPILE_CACHE_HITS.inc()
         return None
     _seen_shape_buckets.add(key)
+    metrics.TPU_COMPILE_CACHE_MISSES.inc()
     return key
 
 
@@ -571,9 +657,10 @@ def warm_compile(buckets=None, runner=None, device=None):
     """Capture the stage graphs of every (n_b, k_b, m_b) bucket in
     `buckets` before the first slot, as the JAX backend's warm_compile
     compiles them: each bucket drives the route the dispatcher takes --
-    the aggregated path when m_b < n_b, else the per-set path (no mesh
-    yet) -- with an all-padding batch (projective infinities, zero
-    weights, no real set), since a graph is keyed by shapes alone.
+    the aggregated path when message aggregation is on and m_b < n_b,
+    else the per-set path (no mesh yet) -- with an all-padding batch
+    (projective infinities, zero weights, no real set), since a graph is
+    keyed by shapes alone.
 
     `runner(kind, args)` is injectable for the tests (kind "staged" or
     "aggregated"); the default runs the route twice on `device` (the card
@@ -595,7 +682,7 @@ def warm_compile(buckets=None, runner=None, device=None):
 
     report = []
     for n_b, k_b, m_b in buckets:
-        aggregated = m_b < n_b
+        aggregated = _msg_agg_enabled() and m_b < n_b
         g_b = grid_bucket(n_b) if aggregated else 0
         u = zeros((m_b, 2, 2, W))
         pk = L.on(_INF_G1, dev).expand(n_b, k_b, 3, W).clone()
@@ -611,8 +698,19 @@ def warm_compile(buckets=None, runner=None, device=None):
                                   zeros((m_b, g_b), torch.bool)))
         else:
             runner("staged", (u, zeros((n_b,), torch.int64), pk, sig, scalars, real))
+        seconds = time.perf_counter() - t0
+        key = "x".join(str(v) for v in (n_b, k_b, m_b, g_b))
+        metrics.TPU_WARM_COMPILE_SECONDS.set(key, seconds)
+        launch_ledger.record(
+            "warm",
+            bucket=key,
+            real_sets=0,  # warm batches are all padding by construction
+            padded_sets=n_b,
+            compile_seconds=seconds,
+            cache_hit=new_key is None,
+        )
         report.append({"bucket": (n_b, k_b, m_b, g_b),
-                       "seconds": time.perf_counter() - t0,
+                       "seconds": seconds,
                        "compiled": new_key is not None})
     return report
 
@@ -645,21 +743,23 @@ class PubkeyTable:
         """Append validated pubkeys (validator_pubkey_cache.rs:79). Every
         key passes key_validate (on curve, in the subgroup, not infinity)
         before any limb row is packed; the whole import is refused with
-        BlsError on the first bad key, and the table is left unchanged."""
+        BlsError on the first bad key, and the table is left unchanged
+        (unless LIGHTHOUSE_TPU_KEY_VALIDATE=0)."""
         if not pubkeys:
             return
         pubkeys = list(pubkeys)
-        for i, pk in enumerate(pubkeys):
-            try:
-                ok = _api().pubkey_subgroup_ok(pk)
-            except Exception:  # noqa: BLE001 -- malformed key object
-                ok = False
-            if not ok:
-                raise _api().BlsError(
-                    f"pubkey table import refused: key {i} failed "
-                    "key_validate (malformed, infinity, or outside the "
-                    "r-torsion subgroup)"
-                )
+        if _key_validate():
+            for i, pk in enumerate(pubkeys):
+                try:
+                    ok = _api().pubkey_subgroup_ok(pk)
+                except Exception:  # noqa: BLE001 -- malformed key object
+                    ok = False
+                if not ok:
+                    raise _api().BlsError(
+                        f"pubkey table import refused: key {i} failed "
+                        "key_validate (malformed, infinity, or outside the "
+                        "r-torsion subgroup)"
+                    )
         rows = np.stack([_pk_limbs(pk) for pk in pubkeys])
         self._host = np.concatenate([self._host, rows], axis=0)
         self._dev = None  # re-upload lazily
@@ -672,7 +772,8 @@ class PubkeyTable:
             b = _bucket(max(n, 1), floor=8)
             padded = np.broadcast_to(_INF_G1, (b, 3, W)).copy()
             padded[:n] = self._host
-            self._dev = torch.as_tensor(padded).to(self.device)
+            self._dev = _to_device(padded, self.device)
+            metrics.TPU_PUBKEY_TABLE_BYTES.set(str(self.device), padded.nbytes)
         return self._dev
 
     def gather(self, indices) -> torch.Tensor:
@@ -680,5 +781,10 @@ class PubkeyTable:
         Out-of-range indices clip to the nearest bucketed row, as
         jnp.take(mode="clip") does (marshalling masks them anyway)."""
         table = self.device_table()
-        idx = torch.as_tensor(indices).to(self.device, torch.int64)
+        if isinstance(indices, torch.Tensor) and indices.device.type != "cpu":
+            idx = indices.to(self.device, torch.int64)
+        else:  # host indices, a CPU tensor too, go through pinned memory
+            idx = _to_device(np.asarray(indices, np.int64), self.device)
+        metrics.TPU_PUBKEY_GATHER_BATCHES.inc()
+        metrics.TPU_PUBKEY_GATHER_BYTES.inc(idx.numel() * 3 * W * 4)
         return table[idx.clamp(0, table.shape[0] - 1)]

@@ -208,6 +208,12 @@ _FOLD = torch.as_tensor(L.FOLD_R).contiguous()
 BUILD_INFO: dict = {}
 
 
+class KernelBuildError(RuntimeError):
+    """The kernel libraries could not be built or loaded: no nvcc, an nvcc
+    failure, or a library the loader refuses. A fault of the checkout or
+    the toolchain, not of the device: nothing degrades around it."""
+
+
 def _nvcc() -> str:
     for cand in (
         os.environ.get("NVCC"),
@@ -216,7 +222,7 @@ def _nvcc() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or NVCC")
+    raise KernelBuildError("nvcc not found: set CUDA_HOME or NVCC")
 
 
 def _source_hash() -> str:
@@ -260,9 +266,12 @@ def build() -> dict:
             else:
                 os.replace(str(so) + ".tmp", so)
         if failed:
-            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+            raise KernelBuildError("kernel build failed:\n" + "\n".join(failed))
         for name in LIBS:
-            lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+            try:
+                lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+            except OSError as e:
+                raise KernelBuildError(f"cannot load lib{name}.so: {e}") from e
             _bind(name, lib)
             _libs[name] = lib
         BUILD_INFO.update(

@@ -24,6 +24,7 @@ from lighthouse_tpu.crypto.bls.curve_ref import Point as JPoint
 from lighthouse_tpu_torch.crypto.bls import api as tapi
 from lighthouse_tpu_torch.crypto.bls.backends import torch_cuda as TB
 from lighthouse_tpu_torch.crypto.bls.curve_ref import Point as TPoint
+from torch_port_util import both, make_signed
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -32,36 +33,10 @@ ROOT = Path(__file__).resolve().parents[1]
 def signed():
     """Six keys, three messages; per (key, message) JAX-side signatures,
     and the same keys/signatures decoded on the port side from bytes."""
-    sks = [japi.SecretKey(424242 + 1009 * i) for i in range(6)]
-    msgs = [b"slot-%d-attestation" % i for i in range(3)]
-    sigs = {}
-
-    def sig(i, m):
-        if (i, m) not in sigs:
-            sigs[i, m] = sks[i].sign(msgs[m])
-        return sigs[i, m]
-
-    return sks, msgs, sig
+    return make_signed()
 
 
-def _both(signed, spec):
-    """spec: [(key indices, message index, signer override or None)] ->
-    (jax sets, port sets). A set's signature aggregates its keys'
-    signatures over `signer`'s message (a forgery when it differs)."""
-    sks, msgs, sig = signed
-    jsets, tsets = [], []
-    for keys, m, signed_m in spec:
-        s = japi.AggregateSignature.aggregate(
-            [sig(i, m if signed_m is None else signed_m) for i in keys]
-        ).to_signature()
-        jpks = [sks[i].public_key() for i in keys]
-        jsets.append(japi.SignatureSet.multiple_pubkeys(s, jpks, msgs[m]))
-        tsets.append(tapi.SignatureSet.multiple_pubkeys(
-            tapi.Signature.from_bytes(s.to_bytes()),
-            [tapi.PublicKey.from_bytes(pk.to_bytes()) for pk in jpks],
-            msgs[m],
-        ))
-    return jsets, tsets
+_both = both
 
 
 def _oracle(jsets, seed):
@@ -241,6 +216,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 top = name.split(".")[0]
                 if top in ("jax", "jaxlib", "lighthouse_tpu"):
                     bad.append(f"{path.relative_to(ROOT)}:{node.lineno} {name}")
+    walked = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for mod in ("crypto/bls/pipeline.py", "crypto/bls/scheduler.py",
+                "crypto/bls/pairing_ref.py", "crypto/bls/backends/cpu.py",
+                "crypto/bls/backends/fake.py", "crypto/bls/backends/fallback.py",
+                "obs/ledger.py", "resilience/primitives.py", "utils/metrics.py",
+                "utils/tracing.py"):
+        assert "lighthouse_tpu_torch/" + mod in walked, mod
     assert len(_port_files()) > 10
     assert not bad, bad
 

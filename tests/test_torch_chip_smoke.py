@@ -163,3 +163,174 @@ def test_ptxas_summary_names_each_kernel_with_its_resources():
         "cumulative stack size",
         "most spill bytes of any function: 4",
     ]
+
+
+def test_pipeline_phase_runs_last_on_warmed_buckets():
+    """The pipeline phase comes after every phase it can reuse; each of its
+    buckets but the aggregate batch's is one warm_compile captures by
+    default, the scheduler's 16-set entries' natural bucket among them,
+    and the gossip batch merges to exactly a warm capacity."""
+    from lighthouse_tpu_torch.crypto.bls import scheduler as S
+    from lighthouse_tpu_torch.crypto.bls.backends import torch_cuda as B
+
+    assert CS.ALL_PHASES[-1] == "pipeline"
+    assert set(CS.ALL_PHASES[:-1]) >= {"gossip", "aggregate", "warm", "table"}
+    warm = set(B.DEFAULT_WARM_BUCKETS)
+    assert [b for b in CS.PIPELINE_BUCKETS if b not in warm] == [(1024, 4, 32)]
+    assert (16, 4, 16) in warm and S.warm_capacity(64) == 64
+    assert CS.STREAM_K == 8
+
+
+class _Future:
+    def __init__(self, verdict, done):
+        self.verdict, self.is_done = verdict, done
+
+    def done(self):
+        return self.is_done
+
+    def result(self):
+        return self.verdict
+
+
+class _StreamApi:
+    """Sync verdicts from the sets; futures that report `done` as told,
+    with verdicts optionally flipped."""
+
+    def __init__(self, done, flip=()):
+        self.done, self.flip, self.n = done, set(flip), 0
+
+    def verify_signature_sets(self, sets, seed=None):
+        return "bad" not in sets
+
+    def verify_signature_sets_async(self, sets, seed=None):
+        n, self.n = self.n, self.n + 1
+        v = self.verify_signature_sets(sets, seed)
+        return _Future(v != (n in self.flip), self.done(n))
+
+
+class _StreamK:
+    """Launch counts as a stream of `stream` would leave them."""
+
+    def __init__(self, stream):
+        self.stream = stream
+
+    def reset_launches(self):
+        self.LAUNCHES = dict.fromkeys(K.LAUNCHES, 0)
+        for _, pairs in self.stream:
+            for name, n in CS.expected_launches(TP, pairs).items():
+                self.LAUNCHES[name] += n
+        self.LAUNCHES["fp_mul"] = self.LAUNCHES["fp_sq"] = 1
+
+
+class _Torch:
+    class cuda:  # noqa: N801 -- torch.cuda's shape
+        @staticmethod
+        def synchronize():
+            pass
+
+
+class _Pipeline:
+    @staticmethod
+    def configure(**kw):
+        pass
+
+
+STREAM = [(["ok"], 65), (["ok"], 33), (["bad"], 65), (["ok"], 33)] * 2
+
+
+@pytest.mark.parametrize("done, flip, fails", [
+    (lambda n: False, (), None),
+    (lambda n: n == 3, (), None),  # one batch may finish early
+    (lambda n: n in (3, 5), (), "already done right after submit"),
+    (lambda n: True, (), "already done right after submit"),
+    (lambda n: False, (2,), "futures"),
+])
+def test_pipeline_stream_needs_sync_verdicts_and_pending_futures(done, flip, fails):
+    """The stream's needs: every future's verdict is the sync verify's, and
+    future N is still pending right after submit(N+1) for at least K - 2
+    batches; a dispatch that synced the card would leave them done."""
+    run = lambda: CS.pipeline_stream(  # noqa: E731
+        _Torch, _StreamK(STREAM), TP, _StreamApi(done, flip), _Pipeline,
+        "stream", STREAM, {}, "card")
+    if fails is None:
+        out = run()
+        assert out["verdicts"] == [s[0] != "bad" for s, _ in STREAM]
+        assert out["batches"] == 8 and len(out["not_done_after_next"]) == 7
+    else:
+        with pytest.raises(CS.Fail, match=fails):
+            run()
+
+
+def test_scheduler_run_merges_four_lanes_into_one_launch(monkeypatch):
+    """The scheduler part of the pipeline phase on the fake backend: four
+    entries on the four validator lanes merge into one launch, in lane
+    order, and no stage graph is captured."""
+    from lighthouse_tpu_torch.crypto.bls import api
+    from lighthouse_tpu_torch.crypto.bls import pipeline as P
+    from lighthouse_tpu_torch.crypto.bls import scheduler as S
+    from lighthouse_tpu_torch.crypto.bls.backends import torch_cuda as B
+    from lighthouse_tpu_torch.utils import metrics as M
+
+    class Set:
+        pubkeys = [1]
+
+    monkeypatch.setenv("LIGHTHOUSE_TPU_CONT_BATCH", "1")
+    saved = api._BACKEND, api._BACKEND_NAME
+    api.set_backend("fake")
+    try:
+        P.configure(depth=2)
+        lanes = ("block", "aggregate", "unaggregated", "sync")
+        verdicts, sched, _, captured, new = CS.scheduler_run(
+            api, S, B, M, "sched", [[Set()] * 16] * 4, lanes, 80)
+    finally:
+        api._BACKEND, api._BACKEND_NAME = saved
+        S.configure()
+        P.configure()
+    assert verdicts == [True] * 4 and (captured, new) == (0, 0)
+    assert sched.stats["launches"] == 1 and sched.stats["real_sets"] == 64
+    assert sched.stats["pad_sets"] == 0 and sched.launch_log[0]["lanes"] == lanes
+
+
+def _spin_torch(spin_s=0.2):
+    """torch as busy_card_dispatch sees it: `_sleep` queues a spin that
+    `synchronize` (and anything that syncs) waits out."""
+    import time
+    from types import SimpleNamespace
+
+    state = {"until": 0.0}
+
+    def _sleep(cycles):
+        state["until"] = time.perf_counter() + spin_s
+
+    def synchronize():
+        time.sleep(max(0.0, state["until"] - time.perf_counter()))
+
+    class Host:
+        def to(self, device):  # a pageable copy: waits for the stream
+            synchronize()
+            return self
+
+    return SimpleNamespace(cuda=SimpleNamespace(_sleep=_sleep, synchronize=synchronize),
+                           zeros=lambda n: Host())
+
+
+@pytest.mark.parametrize("dispatch_waits", [False, True])
+def test_busy_card_dispatch_needs_submits_that_do_not_wait(dispatch_waits):
+    """Behind a spin, a pageable copy waits it out (the method's own
+    check) and a submit must not: one that synchronizes fails the run."""
+    torch = _spin_torch()
+
+    class Api:
+        def verify_signature_sets_async(self, sets, seed=None):
+            if dispatch_waits:
+                torch.cuda.synchronize()
+            return _Future(True, False)
+
+    batches = {"gossip": (["g"], None, 65), "aggregate": (["a"], None, 33)}
+    if dispatch_waits:
+        with pytest.raises(CS.Fail, match="dispatch waited on the card"):
+            CS.busy_card_dispatch(torch, Api(), _Pipeline, batches, "card")
+        return
+    out = CS.busy_card_dispatch(torch, Api(), _Pipeline, batches, "card")
+    assert out["pageable_copy_ms"] > out["spin_ms"] / 2
+    assert out["gossip"]["submit_ms"] < out["spin_ms"] / 4

@@ -52,6 +52,73 @@ def assert_same(jax_fn, torch_fn, *args):
         np.testing.assert_array_equal(g, w)
 
 
+def make_signed(n_keys=6, n_msgs=3):
+    """Keys and messages with lazily made JAX-side signatures: (secret
+    keys, messages, sig(key i, message m))."""
+    from lighthouse_tpu.crypto.bls import api as japi
+
+    sks = [japi.SecretKey(424242 + 1009 * i) for i in range(n_keys)]
+    msgs = [b"slot-%d-attestation" % i for i in range(n_msgs)]
+    sigs = {}
+
+    def sig(i, m):
+        if (i, m) not in sigs:
+            sigs[i, m] = sks[i].sign(msgs[m])
+        return sigs[i, m]
+
+    return sks, msgs, sig
+
+
+def both(signed, spec):
+    """spec: [(key indices, message index, signer override or None)] ->
+    (jax sets, port sets). A set's signature aggregates its keys'
+    signatures over `signer`'s message (a forgery when it differs); the
+    port's keys and signatures are decoded from the JAX side's bytes."""
+    from lighthouse_tpu.crypto.bls import api as japi
+    from lighthouse_tpu_torch.crypto.bls import api as tapi
+
+    sks, msgs, sig = signed
+    jsets, tsets = [], []
+    for keys, m, signed_m in spec:
+        s = japi.AggregateSignature.aggregate(
+            [sig(i, m if signed_m is None else signed_m) for i in keys]
+        ).to_signature()
+        jpks = [sks[i].public_key() for i in keys]
+        jsets.append(japi.SignatureSet.multiple_pubkeys(s, jpks, msgs[m]))
+        tsets.append(tapi.SignatureSet.multiple_pubkeys(
+            tapi.Signature.from_bytes(s.to_bytes()),
+            [tapi.PublicKey.from_bytes(pk.to_bytes()) for pk in jpks],
+            msgs[m],
+        ))
+    return jsets, tsets
+
+
+def no_xla_compile():
+    """Context manager: fail if JAX compiled any XLA program inside it
+    (the seam's parity tests hand both packages host work only)."""
+    import contextlib
+
+    import jax.monitoring as monitoring
+    from jax._src.dispatch import BACKEND_COMPILE_EVENT
+
+    @contextlib.contextmanager
+    def guard():
+        seen = []
+
+        def listener(event, duration, **kw):
+            if event == BACKEND_COMPILE_EVENT:
+                seen.append(duration)
+
+        monitoring.register_event_duration_secs_listener(listener)
+        try:
+            yield
+        finally:
+            monitoring.unregister_event_duration_listener(listener)
+        assert not seen, f"{len(seen)} XLA compiles"
+
+    return guard()
+
+
 def need_card():
     """Skip (with the reason) unless a CUDA device and nvcc are present."""
     if not torch.cuda.is_available():
