@@ -75,6 +75,40 @@ Phases (each one fails the run with a nonzero exit):
              verdict, bls_backend_fallback_total + 1, the cpu oracle's
              seconds, and torch_cuda active again once the breaker's
              denied budget (2) is spent
+  monolith   LIGHTHOUSE_TPU_MONOLITH=1 for the phase: the gossip batch and
+             the aggregate batch through `verify_body` as ONE CUDA graph
+             (the aggregate batch per set: 1024 hashes, 1025 Miller pairs),
+             honest True and forged False, replayed and eager, the same
+             verdicts as the staged route, launches as the code implies at
+             65 and 1025 pairs; first-call, capture and warm replay
+             seconds against the staged replay in the same run, the graph
+             pools' MiB before and after, and the host ms to enqueue one
+             replayed verify of each route; with --profile, the replayed
+             and eager monolith profiled on both batches
+  windowed   a child `python3 chip_smoke.py --phases build,windowed-child`
+             with LIGHTHOUSE_TPU_PALLAS=1 (the switch is read at import, so
+             only a fresh process can flip it); its nonzero exit fails the
+             run. The child (phase windowed-child, not in the default
+             list), on the gossip and aggregate batches: the windowed
+             ladder's `prep` canon-equal to the bit ladder's
+             (`_scalar_mul_u64_bit`, captured beside it), the windowed
+             ladder on the card bit-identical to its plain version on the
+             CPU at 4 rows of both groups, honest True and forged False
+             through the entry point, launches as the code implies, and
+             `prep` replay ms under both ladders, synchronized
+  correct    the speculation correction: set_committee_aggregates over
+             2048 committee aggregates (64 committees a slot x 32 slots, a
+             mainnet epoch), then correct_aggregate_device for 1, 7 and 33
+             absent members of a 512-member committee, each equal to the
+             host aggregate of the present members; ms per call
+  adversary  every probe family's batches for seed 0 and two honest
+             controls through adversary.rejection_matrix over cpu,
+             torch_per_set, torch_aggregated and fallback, and once more
+             through the monolith; the subgroup family also through the
+             PubkeyTable route (the import refuses the poisoned keys). Any
+             accepted probe, rejected control or disagreement between
+             paths fails the run; the probe buckets and the monolith are
+             warmed first, and their capture seconds reported
 
 The entry points run each stage as a CUDA graph: in every path the first
 verify of a batch captures its stages and the verifies after it replay
@@ -110,8 +144,11 @@ import time
 
 ALL_PHASES = (
     "build", "kernels", "parity", "gossip", "aggregate", "warm", "table",
-    "aggverify", "graphs", "pipeline",
+    "aggverify", "graphs", "pipeline", "monolith", "windowed", "correct",
+    "adversary",
 )
+# run only as the windowed phase's child process
+CHILD_PHASES = ("windowed-child",)
 
 # H100 SXM peaks. HBM: 3.35 TB/s (NVIDIA data sheet). int32: the CUDA C++
 # Programming Guide's arithmetic-throughput table gives compute capability
@@ -299,6 +336,27 @@ def check_launches(label, counts, want):
     for name, n in want.items():
         need(counts[name] == n, f"{label}: {counts[name]} {name} launches, "
              f"want {n}")
+
+
+@contextlib.contextmanager
+def env_pinned(**values):
+    """The environment variables set for the block, restored after it."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def add_launches(launches, counts):
+    """Add one path's launch counts to the run's."""
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
 
 
 def bound(name: str, rows: int):
@@ -663,8 +721,7 @@ def run_path(torch, K, TP, B, api, label, sets, forged, pairs, launches, card,
     rows = launch_rows(tally)
     need(ok, f"{label}: honest batch rejected")
     check_launches(label, counts, expected_launches(TP, pairs))
-    for name, n in counts.items():
-        launches[name] = launches.get(name, 0) + n
+    add_launches(launches, counts)
     log(f"{label}: launches by rows {json.dumps(rows)}")
     staged_ok, times, staged_secs, aggregated = _verify_timed(torch, B, sets, seed=12)
     need(staged_ok, f"{label}: staged (timed) verify rejected")
@@ -761,8 +818,7 @@ def phase_table(torch, K, TP, B, api, batches, launches, card, tagged_out):
         counts = dict(K.LAUNCHES)
         need(ok, f"{label}: honest batch rejected")
         check_launches(label, counts, expected_launches(TP, pairs))
-        for name, n in counts.items():
-            launches[name] = launches.get(name, 0) + n
+        add_launches(launches, counts)
         need(api.verify_signature_sets(sets, seed=21) == ok,
              f"{label}: host-packed route disagrees")
         t0 = time.perf_counter()
@@ -808,8 +864,7 @@ def phase_aggverify(torch, K, TP, B, api, gossip, launches, card):
     counts = dict(K.LAUNCHES)
     need(ok, "aggverify: honest aggregate rejected")
     check_launches("aggverify", counts, expected_launches(TP, len(pks) + 1))
-    for name, n in counts.items():
-        launches[name] = launches.get(name, 0) + n
+    add_launches(launches, counts)
     swapped = list(msgs)
     swapped[9] = b"not the attested data"
     t0 = time.perf_counter()
@@ -829,7 +884,7 @@ def phase_aggverify(torch, K, TP, B, api, gossip, launches, card):
                 stage_ms=times, launches=counts)
 
 
-def profile_verify(torch, K, B, sets, label):
+def profile_verify(torch, K, B, sets, label, monolith=False):
     """For the replayed route (the stage graphs) and the eager route (the
     plain stages): one warm verify of the marshalled batch without the
     profiler (its wall time), then the same verify under torch.profiler:
@@ -853,10 +908,11 @@ def profile_verify(torch, K, B, sets, label):
 
     out = {}
     for route, timer in (("replay", None), ("eager", eager_stages)):
-        wall_ms = wall(lambda: B.run_marshalled(mb, timer=timer))
+        wall_ms = wall(lambda: B.run_marshalled(mb, timer=timer, monolith=monolith))
         K.reset_launches()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            profiled_wall_ms = wall(lambda: B.run_marshalled(mb, timer=timer))
+            profiled_wall_ms = wall(
+                lambda: B.run_marshalled(mb, timer=timer, monolith=monolith))
         counted = dict(K.LAUNCHES)
         kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
         busy_us = sum(e.self_device_time_total for e in kernels)
@@ -868,9 +924,17 @@ def profile_verify(torch, K, B, sets, label):
             port[name] = (sum(e.count for e in hits),
                           sum(e.self_device_time_total for e in hits) / 1e3)
         seen_all = all(port[n][0] == c for n, c in counted.items())
+        # the profiled verify's device span, first kernel start to last
+        # kernel end, and the gaps between kernels inside it: taken with the
+        # profiler on, whose host cost stretches the host's launches, so
+        # they show how the device waits on a slower host, not the gaps of
+        # the unprofiled wall
+        spans = [e.time_range for e in prof.events() if e.device_type.name == "CUDA"]
+        span_ms = (max(r.end for r in spans) - min(r.start for r in spans)) / 1e3
         summary = dict(
             wall_ms=wall_ms, profiled_wall_ms=profiled_wall_ms,
             device_busy_ms=busy_us / 1e3, idle_share=1 - busy_us / 1e3 / wall_ms,
+            device_span_ms=span_ms, gaps_in_span_ms=span_ms - busy_us / 1e3,
             device_kernels=launches, profiler_saw_every_launch=seen_all,
             top=[(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top],
             port_kernels=port,
@@ -879,7 +943,8 @@ def profile_verify(torch, K, B, sets, label):
         log(f"{tag}: wall {wall_ms:.1f} ms (profiler off; "
             f"{profiled_wall_ms:.1f} ms on), device busy {busy_us / 1e3:.1f} ms, "
             f"idle share {summary['idle_share']:.4f} of the unprofiled wall, "
-            f"{launches} device kernels")
+            f"{launches} device kernels; device span {span_ms:.1f} ms, gaps "
+            f"inside it {span_ms - busy_us / 1e3:.1f} ms")
         for key, count, ms in summary["top"]:
             log(f"{tag}:   {ms:9.2f} ms  {count:7d}x  {key}")
         log(f"{tag}: hand-written kernels (launches, device ms): "
@@ -954,8 +1019,7 @@ def phase_graphs(torch, K, TP, B, CG, batches, launches, card):
         counts = dict(K.LAUNCHES)
         need(ok, f"{tag}: honest batch rejected on replay")
         check_launches(tag, counts, expected_launches(TP, pairs))
-        for name, n in counts.items():
-            launches[name] = launches.get(name, 0) + n
+        add_launches(launches, counts)
         need(not bool(B.run_marshalled(mb_bad)),
              f"{tag}: forged batch accepted on replay")
         need(bool(B.run_marshalled(mb)),
@@ -1009,9 +1073,10 @@ PIPELINE_BUCKETS = ((64, 4, 64), (1024, 4, 32), (16, 4, 16), (4, 4, 4))
 
 def graph_count(B) -> int:
     """Stage graphs captured so far, over every stage and shape."""
-    return sum(len(g.graphs) for g in (
-        B._hash_graphs, B._prep_graphs, B._miller_graphs, B._final_graphs,
-        B._group_graphs, B._agg_prep_graphs))
+    names = ("_hash_graphs", "_prep_graphs", "_miller_graphs", "_final_graphs",
+             "_group_graphs", "_agg_prep_graphs", "_monolith_graphs",
+             "_correct_graphs")
+    return sum(len(getattr(B, n).graphs) for n in names if hasattr(B, n))
 
 
 def pipeline_stream(torch, K, TP, api, P, label, stream, launches, card):
@@ -1055,8 +1120,7 @@ def pipeline_stream(torch, K, TP, api, P, label, stream, launches, card):
         f"latencies {sum(sync_secs):.3f} s ({n_sets / sum(sync_secs):.1f} sets/s); "
         f"card: {card}")
     check_launches(label, counts, want)
-    for name, n in counts.items():
-        launches[name] = launches.get(name, 0) + n
+    add_launches(launches, counts)
     need(verdicts == sync_verdicts,
          f"{label}: futures {verdicts} != sync verdicts {sync_verdicts}")
     need(sum(not_done) >= k - 2,
@@ -1179,39 +1243,34 @@ def phase_pipeline(torch, K, TP, B, api, batches, tagged, launches, card):
     q = len(gossip) // 4  # 16 sets an entry: natural bucket (16, 4, 16)
     entries = [gossip[q * i:q * (i + 1)] for i in range(4)]
     bad_entries = [forged_gossip[q * i:q * (i + 1)] for i in range(4)]
-    saved = os.environ.get("LIGHTHOUSE_TPU_CONT_BATCH")
-    os.environ["LIGHTHOUSE_TPU_CONT_BATCH"] = "1"
     try:
-        P.configure(depth=2)
-        verdicts, sched, secs, captured, new_shapes = scheduler_run(
-            api, S, B, M, "pipeline-sched", entries, lanes, 80)
-        need(verdicts == [True] * 4, f"pipeline-sched: verdicts {verdicts}")
-        need(sched.stats["launches"] == 1 and sched.launch_log[0]["lanes"] == lanes,
-             f"pipeline-sched: launches {sched.stats}, log {list(sched.launch_log)}")
-        need(captured == 0 and new_shapes == 0,
-             f"pipeline-sched: the merged launch captured {captured} graphs, "
-             f"{new_shapes} new shapes")
-        out["sched"] = dict(seconds=secs, stats=dict(sched.stats),
-                            captured=captured)
-        unmerged = [api.verify_signature_sets(e, seed=90 + i)
-                    for i, e in enumerate(bad_entries)]
-        verdicts, sched, secs, captured, new_shapes = scheduler_run(
-            api, S, B, M, "pipeline-sched-forged", bad_entries, lanes, 90)
-        need(sched.stats["merge_fallbacks"] == 1,
-             f"pipeline-sched-forged: stats {sched.stats}")
-        need(verdicts == unmerged == [True, False, True, True],
-             f"pipeline-sched-forged: verdicts {verdicts}, unmerged {unmerged}")
-        need(captured == 0 and new_shapes == 0,
-             f"pipeline-sched-forged: {captured} graphs captured, {new_shapes} "
-             "new shapes (the re-verifies' natural bucket is warmed)")
-        out["sched_forged"] = dict(seconds=secs, stats=dict(sched.stats),
-                                   captured=captured)
+        with env_pinned(LIGHTHOUSE_TPU_CONT_BATCH="1"):
+            P.configure(depth=2)
+            verdicts, sched, secs, captured, new_shapes = scheduler_run(
+                api, S, B, M, "pipeline-sched", entries, lanes, 80)
+            need(verdicts == [True] * 4, f"pipeline-sched: verdicts {verdicts}")
+            need(sched.stats["launches"] == 1 and sched.launch_log[0]["lanes"] == lanes,
+                 f"pipeline-sched: launches {sched.stats}, log {list(sched.launch_log)}")
+            need(captured == 0 and new_shapes == 0,
+                 f"pipeline-sched: the merged launch captured {captured} graphs, "
+                 f"{new_shapes} new shapes")
+            out["sched"] = dict(seconds=secs, stats=dict(sched.stats),
+                                captured=captured)
+            unmerged = [api.verify_signature_sets(e, seed=90 + i)
+                        for i, e in enumerate(bad_entries)]
+            verdicts, sched, secs, captured, new_shapes = scheduler_run(
+                api, S, B, M, "pipeline-sched-forged", bad_entries, lanes, 90)
+            need(sched.stats["merge_fallbacks"] == 1,
+                 f"pipeline-sched-forged: stats {sched.stats}")
+            need(verdicts == unmerged == [True, False, True, True],
+                 f"pipeline-sched-forged: verdicts {verdicts}, unmerged {unmerged}")
+            need(captured == 0 and new_shapes == 0,
+                 f"pipeline-sched-forged: {captured} graphs captured, {new_shapes} "
+                 "new shapes (the re-verifies' natural bucket is warmed)")
+            out["sched_forged"] = dict(seconds=secs, stats=dict(sched.stats),
+                                       captured=captured)
     finally:
         S.configure()
-        if saved is None:
-            os.environ.pop("LIGHTHOUSE_TPU_CONT_BATCH")
-        else:
-            os.environ["LIGHTHOUSE_TPU_CONT_BATCH"] = saved
 
     sets = parity_sets(api)[0]
 
@@ -1258,6 +1317,357 @@ def phase_pipeline(torch, K, TP, B, api, batches, tagged, launches, card):
     return out
 
 
+# --- the rest of crypto/bls: monolith, windowed ladder, correction, adversary --
+
+
+def phase_monolith(torch, K, TP, B, CG, api, batches, launches, card, profile):
+    """Each batch through the entry point under LIGHTHOUSE_TPU_MONOLITH=1:
+    the first verify captures `verify_body` as one graph at the batch's
+    set bucket, the counted one replays it (n_b + 1 Miller pairs); the
+    forged batch; the eager monolith (plain `verify_body`); and the staged
+    route's verdicts and warm replay time in the same run."""
+    from lighthouse_tpu_torch.utils import metrics as M
+
+    out = {}
+    before = memory_line(torch)
+    for label, (sets, forged, _) in batches.items():
+        tag = f"monolith {label}"
+        n_b = B._bucket(len(sets))
+        pairs = n_b + 1
+        staged = (api.verify_signature_sets(sets, seed=40),
+                  api.verify_signature_sets(forged, seed=41))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        need(api.verify_signature_sets(sets, seed=42), f"{tag}: staged verify rejected")
+        staged_secs = time.perf_counter() - t0
+        mb = B._marshal_batch(sets, "cuda", seed=46)
+        key = CG.shape_key((mb.u[mb.h_idx], mb.pk, mb.sig, mb.scalars, mb.real))
+        with env_pinned(LIGHTHOUSE_TPU_MONOLITH="1"):
+            t0 = time.perf_counter()
+            need(api.verify_signature_sets(sets, seed=43), f"{tag}: first verify rejected")
+            first_secs = time.perf_counter() - t0
+            K.reset_launches()
+            t0 = time.perf_counter()
+            ok = api.verify_signature_sets(sets, seed=44)
+            secs = time.perf_counter() - t0
+            counts = dict(K.LAUNCHES)
+            need(M.BLS_MILLER_PAIRS_LAST.value == pairs,
+                 f"{tag}: {M.BLS_MILLER_PAIRS_LAST.value} Miller pairs counted, want {pairs}")
+            t0 = time.perf_counter()
+            bad = api.verify_signature_sets(forged, seed=45)
+            bad_secs = time.perf_counter() - t0
+        need(ok, f"{tag}: honest batch rejected on replay")
+        need(not bad, f"{tag}: forged batch accepted on replay")
+        need(staged == (ok, bad), f"{tag}: staged verdicts {staged}, monolith {(ok, bad)}")
+        check_launches(tag, counts, expected_launches(TP, pairs))
+        add_launches(launches, counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager_ok = bool(B.run_marshalled(mb, timer=eager_stages, monolith=True))
+        eager_secs = time.perf_counter() - t0
+        eager_bad = bool(B.run_marshalled(B._marshal_batch(forged, "cuda", seed=46),
+                                          timer=eager_stages, monolith=True))
+        need(eager_ok and not eager_bad,
+             f"{tag}: eager monolith verdicts {(eager_ok, eager_bad)}")
+        capture = B._monolith_graphs.capture_seconds.get(key)
+        need(capture is not None, f"{tag}: no monolith graph at {key}")
+        # host ms until a replayed verify is enqueued (nothing inside reads
+        # the card), and its wall to the end of the device work
+        enqueue = {}
+        for route, mono in (("staged", False), ("monolith", True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            B.run_marshalled(mb, monolith=mono)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            enqueue[route] = dict(enqueue_ms=(t1 - t0) * 1e3,
+                                  wall_ms=(time.perf_counter() - t0) * 1e3)
+        log(f"{tag}: host ms to enqueue one replayed verify / its wall: " + ", ".join(
+            f"{r} {v['enqueue_ms']:.1f} / {v['wall_ms']:.1f}" for r, v in enqueue.items()))
+        log(f"{tag}: {len(sets)} sets, n_b {n_b}, {pairs} Miller pairs; honest True, "
+            f"forged False (replayed and eager), staged verdicts equal; first verify "
+            f"{first_secs:.3f} s (eager run + capture {capture:.3f} s), replay "
+            f"{secs:.3f} s ({len(sets) / secs:.2f} sets/s), forged {bad_secs:.3f} s, "
+            f"eager {eager_secs:.3f} s; staged replay {staged_secs:.3f} s in this "
+            f"run; launches {counts}; card: {card}")
+        out[label] = dict(sets=len(sets), pairs=pairs, first_seconds=first_secs,
+                          capture_seconds=capture, seconds=secs,
+                          forged_seconds=bad_secs, eager_seconds=eager_secs,
+                          staged_seconds=staged_secs, enqueue=enqueue,
+                          launches=counts)
+        if profile:
+            out[label]["profile"] = profile_verify(torch, K, B, sets, tag, monolith=True)
+    after = memory_line(torch)
+    log(f"monolith: graph pools {mib(before['graph_pools'])} -> "
+        f"{mib(after['graph_pools'])}, reserved {mib(before['reserved'])} -> "
+        f"{mib(after['reserved'])}; card: {card}")
+    out["memory_before"], out["memory_after"] = before, after
+    return out
+
+
+def phase_windowed(card, launches):
+    """The windowed phase: this script again, in a child process with
+    LIGHTHOUSE_TPU_PALLAS=1 and the phases build,windowed-child. Its
+    output is relayed line by line; its paths line carries its launches."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--phases", "build,windowed-child"],
+        env=dict(os.environ, LIGHTHOUSE_TPU_PALLAS="1"), capture_output=True,
+        text=True, timeout=900,
+    )
+    secs = time.perf_counter() - t0
+    child = None
+    for line in proc.stdout.splitlines():
+        log(f"windowed-child | {line}")
+        if line.startswith('{"paths"'):
+            child = json.loads(line)["paths"].get("windowed-child")
+    for line in proc.stderr.splitlines()[-30:]:
+        log(f"windowed-child stderr | {line}")
+    need(proc.returncode == 0, f"windowed: the child exited {proc.returncode}")
+    need(child is not None, "windowed: the child printed no windowed-child result")
+    for label in ("gossip", "aggregate"):
+        add_launches(launches, child[label]["launches"])
+    log(f"windowed: the child passed in {secs:.1f} s; card: {card}")
+    return dict(child, seconds=secs)
+
+
+def with_ladder(C, stage, ladder):
+    """`stage` run with `ladder` bound as curve.scalar_mul_u64 (the stage
+    reads it at call time; a graph of this function keeps the ladder it
+    was captured with)."""
+    def run(*args):
+        saved = C.scalar_mul_u64
+        C.scalar_mul_u64 = ladder
+        try:
+            return stage(*args)
+        finally:
+            C.scalar_mul_u64 = saved
+    return run
+
+
+def replay_ms(torch, fn, args, reps=5) -> float:
+    """The median of `reps` synchronized calls of `fn`, ms."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def phase_windowed_child(torch, K, TP, B, CG, api, batches, launches, card):
+    """In a process started with LIGHTHOUSE_TPU_PALLAS=1: the entry point
+    runs the windowed ladder; its prep is held to the bit ladder's by
+    canon equality, the ladder on the card to its plain version on the
+    CPU, and the verdicts to the staged ones (True, False)."""
+    from lighthouse_tpu_torch.crypto.bls.gpu import curve as C
+    from lighthouse_tpu_torch.crypto.bls.gpu import limbs as L
+
+    need(C.WINDOWED_LADDER and C.scalar_mul_u64 is not C._scalar_mul_u64_bit,
+         "windowed-child: LIGHTHOUSE_TPU_PALLAS=1 did not select the windowed ladder")
+    bit_graphs = CG.graphed(with_ladder(C, B._stage_prep, C._scalar_mul_u64_bit))
+    out = {}
+    for label, (sets, forged, pairs) in batches.items():
+        tag = f"windowed {label}"
+        t0 = time.perf_counter()
+        need(api.verify_signature_sets(sets, seed=10), f"{tag}: first verify rejected")
+        first_secs = time.perf_counter() - t0
+        K.reset_launches()
+        t0 = time.perf_counter()
+        ok = api.verify_signature_sets(sets, seed=11)
+        secs = time.perf_counter() - t0
+        counts = dict(K.LAUNCHES)
+        need(ok, f"{tag}: honest batch rejected")
+        check_launches(tag, counts, expected_launches(TP, pairs))
+        add_launches(launches, counts)
+        need(not api.verify_signature_sets(forged, seed=13), f"{tag}: forged batch accepted")
+        mb = B._marshal_batch(sets, "cuda", seed=12)
+        args = (mb.pk, mb.sig, mb.scalars, mb.real)
+        win = B._prep_graphs(*args)  # replays the windowed capture
+        t0 = time.perf_counter()
+        bit = bit_graphs(*args)  # eager run + capture with the bit ladder
+        bit_capture = time.perf_counter() - t0
+        for g, w in zip(win, B._stage_prep(*args)):
+            need(torch.equal(g, w), f"{tag}: windowed prep replay differs from its eager run")
+        rpk_w, rinf_w, ssum_w, sinf_w, ok_w = win
+        rpk_b, rinf_b, ssum_b, sinf_b, ok_b = bit
+        need(torch.equal(rinf_w, rinf_b) and torch.equal(sinf_w, sinf_b)
+             and torch.equal(ok_w, ok_b) and bool(ok_w),
+             f"{tag}: infinity masks or flags differ between the ladders")
+        need(torch.equal(L.canon(rpk_w), L.canon(rpk_b))
+             and torch.equal(L.canon(ssum_w), L.canon(ssum_b)),
+             f"{tag}: windowed and bit-ladder prep give other affine points")
+        need(not torch.equal(rpk_w, rpk_b) or not torch.equal(ssum_w, ssum_b),
+             f"{tag}: the two ladders gave the same limbs (not two ladders?)")
+        s = mb.scalars[:4].clone()
+        s[0] = torch.tensor([0xFFFFFFFF, 0xFFFFFFFF], device=s.device)
+        for F, p in ((C.FP, mb.pk[:4, 0]), (C.FP2, mb.sig[:4])):
+            card_out = C.scalar_mul_u64_windowed(p, s, F)
+            need(torch.equal(card_out.cpu(), C.scalar_mul_u64_windowed(p.cpu(), s.cpu(), F)),
+                 f"{tag}: windowed ladder on the card differs from its plain version "
+                 f"on the CPU ({F.__name__})")
+        win_ms = replay_ms(torch, B._prep_graphs, args)
+        bit_ms = replay_ms(torch, bit_graphs, args)
+        log(f"{tag}: windowed ladder (switch read at import); honest True, forged "
+            f"False; prep canon-equal to the bit ladder's; the ladder bit-identical "
+            f"card vs CPU at 4 rows, G1 and G2; first verify {first_secs:.3f} s, "
+            f"replay {secs:.3f} s; prep replay ms (median of 5, synchronized): "
+            f"windowed {win_ms:.2f}, bit {bit_ms:.2f} (bit capture {bit_capture:.3f} s); "
+            f"launches {counts}; card: {card}")
+        out[label] = dict(first_seconds=first_secs, seconds=secs, prep_ms_windowed=win_ms,
+                          prep_ms_bit=bit_ms, launches=counts)
+    return out
+
+
+def committee_points(api, C, n, base_scalar):
+    """n distinct G1 keys [base_scalar * j]G, j = 1..n, by host additions."""
+    base = C.g1_generator().mul(base_scalar)
+    acc, out = base, []
+    for _ in range(n):
+        out.append(api.PublicKey(acc, subgroup_checked=True))
+        acc = acc + base
+    return out
+
+
+def phase_correct(torch, K, B, api, launches, card):
+    """The speculation correction at a mainnet epoch's size: the
+    committee-aggregate table on the card, and the device correction of a
+    512-member committee's aggregate for 1, 7 and 33 absent members."""
+    from lighthouse_tpu_torch.crypto.bls import curve_ref as C
+    from lighthouse_tpu_torch.utils import metrics as M
+
+    aggregates = committee_points(api, C, 64 * 32, 7)
+    t0 = time.perf_counter()
+    B.set_committee_aggregates(aggregates)
+    table = B.committee_table().device_table()
+    torch.cuda.synchronize()
+    table_ms = (time.perf_counter() - t0) * 1e3
+    need(tuple(table.shape) == (2048, 3, W) and table.device.type == "cuda",
+         f"correct: committee table {tuple(table.shape)} on {table.device}")
+    need(M.SPECULATE_TABLE_BYTES.value == 2048 * 3 * W * 4,
+         f"correct: SPECULATE_TABLE_BYTES {M.SPECULATE_TABLE_BYTES.value}")
+    members = committee_points(api, C, 512, 11)
+    full = members[0].point
+    for m in members[1:]:
+        full = full + m.point
+    full_pk = api.PublicKey(full, subgroup_checked=True)
+    out = dict(table_rows=2048, table_ms=table_ms)
+    for k in (1, 7, 33):
+        absent = members[5::15][:k]
+        gone = {id(m) for m in absent}
+        want = None
+        for m in members:
+            if id(m) not in gone:
+                want = m.point if want is None else want + m.point
+        t0 = time.perf_counter()
+        first = B.correct_aggregate_device(full_pk, absent)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        K.reset_launches()
+        t0 = time.perf_counter()
+        reps = 10
+        for _ in range(reps):
+            got = B.correct_aggregate_device(full_pk, absent)
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        counts = dict(K.LAUNCHES)
+        for g in (first, got):
+            need(g is not None and (g.x.n, g.y.n) == (want.x.n, want.y.n),
+                 f"correct: {k} absent: device correction != host aggregate")
+        need(counts["fp_mul"] > 0 and counts["fp_sq"] > 0,
+             f"correct: {k} absent: the field kernels did not launch: {counts}")
+        add_launches(launches, {n: c // reps for n, c in counts.items()})
+        log(f"correct: 512-member committee, {k} absent (bucket {B._bucket(k)}): equal "
+            f"to the host aggregate of the present members; {ms:.3f} ms a call "
+            f"(replayed, with its host read; mean of {reps}), first call "
+            f"{first_ms:.1f} ms (eager run + capture); launches a call "
+            f"{ {n: c // reps for n, c in counts.items() if c} }; card: {card}")
+        out[f"absent_{k}"] = dict(ms=ms, first_ms=first_ms)
+    log(f"correct: committee table of 2048 aggregates on the card in {table_ms:.1f} ms "
+        f"({2048 * 3 * W * 4} bytes)")
+    return out
+
+
+def phase_adversary(torch, K, TP, B, api, launches, card):
+    """The adversary matrix on the card: every probe batch (seed 0) and two
+    honest controls through the cpu, torch_per_set, torch_aggregated and
+    fallback paths and the monolith; the subgroup family through the
+    PubkeyTable route too."""
+    from lighthouse_tpu_torch.crypto.bls import adversary as A
+
+    t0 = time.perf_counter()
+    batches = {"honest": A.honest_sets(0),
+               "honest-grid": A.honest_sets(0, n_sets=6, n_messages=2)}
+    for family in sorted(A.BATCHES):
+        for bi, batch in enumerate(A.BATCHES[family](0)):
+            batches[f"{family}[{bi}]"] = batch
+    build_secs = time.perf_counter() - t0
+    buckets = set()
+    for sets in batches.values():
+        mb = B._marshal_batch(sets, "cuda", seed=11)
+        if mb is not None:
+            buckets.add(tuple(B._shape_bucket(mb)[:3]))
+    capture = {}
+    for agg in ("0", "1"):
+        with env_pinned(LIGHTHOUSE_TPU_MSG_AGG=agg):
+            for r in B.warm_compile(buckets=sorted(buckets)):
+                capture[f"MSG_AGG={agg} {r['bucket']}"] = r["seconds"]
+    with env_pinned(LIGHTHOUSE_TPU_MONOLITH="1"):
+        for label in ("honest", "honest-grid"):
+            t1 = time.perf_counter()
+            need(A.run_path("torch_aggregated", batches[label], seed=11),
+                 f"adversary: {label} rejected by the monolith")
+            capture[f"monolith {label}"] = time.perf_counter() - t1
+    log(f"adversary: {len(batches)} batches built in {build_secs:.1f} s; buckets "
+        f"{sorted(buckets)}; capture s " + ", ".join(
+            f"{k} {v:.2f}" for k, v in capture.items()))
+    paths = ("cpu", "torch_per_set", "torch_aggregated", "fallback")
+    matrix, secs = {}, {}
+    K.reset_launches()
+    t0 = time.perf_counter()
+    for label, sets in batches.items():
+        t1 = time.perf_counter()
+        row = A.rejection_matrix(sets, seed=11, paths=paths)
+        with env_pinned(LIGHTHOUSE_TPU_MONOLITH="1"):
+            row["monolith"] = A.run_path("torch_aggregated", sets, seed=11)
+        if label.startswith("subgroup"):
+            row["table"] = table_route(B, api, sets)
+        secs[label] = time.perf_counter() - t1
+        matrix[label] = row
+        log(f"adversary: {label:26s} " + " ".join(
+            f"{p}={'accept' if v else 'reject'}" for p, v in row.items())
+            + f" ({secs[label]:.2f} s)")
+    counts = dict(K.LAUNCHES)
+    total = time.perf_counter() - t0
+    for label, row in matrix.items():
+        want = label.startswith("honest")
+        need(all(v is want for v in row.values()),
+             f"adversary: {label}: {row} (want every path {want})")
+    check_launches("adversary", counts, {})
+    add_launches(launches, counts)
+    log(f"adversary: every probe rejected and every control accepted on every path "
+        f"({len(matrix)} batches, {total:.1f} s); launches {counts}; card: {card}")
+    return dict(matrix=matrix, seconds=secs, capture_seconds=capture,
+                build_seconds=build_secs, launches=counts)
+
+
+def table_route(B, api, sets) -> bool:
+    """A batch through the PubkeyTable route: its keys imported into a
+    fresh table on the card (the import is a key_validate seam: a refusal
+    is a rejection), then verified by index."""
+    keys = [k for s in sets for k in s.pubkeys]
+    table = B.PubkeyTable("cuda")
+    try:
+        table.import_new_pubkeys(keys)
+    except api.BlsError:
+        return False
+    offsets = [0]
+    for s in sets:
+        offsets.append(offsets[-1] + len(s.pubkeys))
+    tagged = tag_sets(api, sets, table, lambda i, j, key: offsets[i] + j)
+    return bool(B.verify_signature_sets(tagged, seed=11))
+
+
 def gossip_sets(api):
     """64 single-pubkey sets over 64 distinct messages, plus a forged copy
     with one signature over the wrong message."""
@@ -1296,7 +1706,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:
-        if p not in ALL_PHASES:
+        if p not in ALL_PHASES + CHILD_PHASES:
             raise SystemExit(f"unknown phase {p!r}")
 
     import torch
@@ -1333,9 +1743,9 @@ def main(argv=None) -> int:
     if "parity" in phases:
         phase_parity(torch, api, B, parity[0])
     use_gossip = any(p in phases for p in ("gossip", "table", "aggverify", "graphs",
-                                           "pipeline"))
+                                           "pipeline", "monolith", "windowed-child"))
     use_aggregate = any(p in phases for p in ("aggregate", "table", "graphs",
-                                              "pipeline"))
+                                              "pipeline", "monolith", "windowed-child"))
     if use_gossip or use_aggregate or "warm" in phases:
         api.set_backend("torch_cuda")
         # (sets, forged, Miller pairs): the gossip batch takes the per-set
@@ -1371,10 +1781,24 @@ def main(argv=None) -> int:
         if "pipeline" in phases:
             paths["pipeline"] = phase_pipeline(
                 torch, K, TP, B, api, batches, tagged, launches, card)
+        if "monolith" in phases:
+            paths["monolith"] = phase_monolith(
+                torch, K, TP, B, CG, api, batches, launches, card, args.profile)
+        if "windowed-child" in phases:
+            paths["windowed-child"] = phase_windowed_child(
+                torch, K, TP, B, CG, api, batches, launches, card)
         if use_gossip or use_aggregate:
             need(all(launches.get(k, 0) > 0 for k in K.LAUNCHES),
                  f"kernels not launched on the main path: {launches}")
             log(f"kernels {json.dumps(launches)}")
+
+    if "windowed" in phases:
+        paths["windowed"] = phase_windowed(card, launches)
+    if "correct" in phases:
+        paths["correct"] = phase_correct(torch, K, B, api, launches, card)
+    if "adversary" in phases:
+        api.set_backend("torch_cuda")
+        paths["adversary"] = phase_adversary(torch, K, TP, B, api, launches, card)
 
     if results:
         line = []

@@ -17,6 +17,9 @@ both backends compute the same limbs at every stage.
 Each stage is `@jax.jit` in the JAX backend: one compiled executable per
 shape. Here each runs on the card as one CUDA graph per shape
 (`utils/cuda_graphs.py`): captured at its first call, replayed after.
+`verify_body` is the whole per-set chain in one function, the JAX
+backend's monolithic `verify_jit`; `_monolith_graphs` runs it as ONE
+CUDA graph per shape when LIGHTHOUSE_TPU_MONOLITH=1.
 `warm_compile` captures the stages of every bucket of
 `DEFAULT_WARM_BUCKETS` before the first slot, and `_seen_shape_buckets`
 is the in-process registry of the bucketed shapes run so far.
@@ -31,17 +34,23 @@ the scheduler (crypto/bls/pipeline.py, scheduler.py) call.
 Dispatch never reads a device value: the host arrays go to the card from
 pinned memory with `non_blocking=True`, and the verdict is a zero-dim
 device bool (the sync entry point reads it with `bool()`; the pipeline
-through a pinned copy behind an event). Two switches,
+through a pinned copy behind an event). Three switches,
 read per call, match the JAX backend's: `LIGHTHOUSE_TPU_MSG_AGG=0` keeps
-every batch on the per-set path, `LIGHTHOUSE_TPU_KEY_VALIDATE=0` skips
-the host key_validate (adversary tests only). The marshal/dispatch seam
+every batch on the per-set path, `LIGHTHOUSE_TPU_MONOLITH=1` sends every
+batch (aggregated ones too) through `verify_body` as one graph, and
+`LIGHTHOUSE_TPU_KEY_VALIDATE=0` skips the host key_validate (adversary
+tests only). The marshal/dispatch seam
 feeds the JAX backend's metric families (utils/metrics.py), opens its
 `bls_marshal`/`bls_dispatch` spans (utils/tracing.py) and records
 "dispatch" and "warm" rows on the launch ledger (obs/ledger.py).
 
-Not yet in the port (see ROADMAP.md): the device mesh (so no sharded
-table), the monolithic program, the speculation correction and the
-windowed ladder.
+Also here: the speculation correction, the device half of
+speculate/precompute.py (`committee_table`, `set_committee_aggregates`,
+`correct_aggregate_device` over `_stage_correct`, graphed per bucket of
+the absent count).
+
+Not yet in the port (see ROADMAP.md): the device mesh, so no sharded
+table, no `verify_body_grouped` and no collectives in `verify_body`.
 """
 
 from __future__ import annotations
@@ -57,6 +66,8 @@ from ....obs import ledger as launch_ledger
 from ....utils import metrics, tracing
 from .. import aggregation as AG
 from ..constants import G1_X as _G1_X, G1_Y as _G1_Y, P as _P
+from ..curve_ref import Point
+from ..fields_ref import Fp
 from ..gpu import curve as TC
 from ..gpu import hash_to_curve as THC
 from ..gpu import limbs as L
@@ -214,8 +225,30 @@ def _stage_agg_prep(pk_jac, sig_jac, real):
     return pk_aff, pk_inf | ~real, sig_aff, sig_inf, sig_ok
 
 
+STAGES = (_stage_hash, _stage_prep, _stage_miller, _stage_final)
+
+
+def verify_body(u, pk_jac, sig_jac, scalars, real, axis_name=None):
+    """The full per-set batch verify in one function, the single-device
+    body of the JAX backend's `verify_body`: per-set draws `u` (n_b, 2, 2,
+    W), no message axis. It runs the four per-set stages in one go, and
+    reads no device value, so the whole chain captures as one graph
+    (`_monolith_graphs`). The mesh form (`axis_name`, with the
+    collectives) waits for the port's device mesh."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            "verify_body over a device mesh: the port has no mesh yet "
+            "(ROADMAP.md Queue 1 item 12)")
+    h_aff, h_inf = _stage_hash(u)
+    rpk_aff, rpk_inf, ssum_aff, ssum_inf, flags_ok = _stage_prep(
+        pk_jac, sig_jac, scalars, real)
+    fprod = _stage_miller(rpk_aff, rpk_inf, h_aff, h_inf, ssum_aff, ssum_inf)
+    return _stage_final(fprod, flags_ok)
+
+
 # the stages as the entry points run them: on the card, one CUDA graph per
 # shape (`graphed(...).fn` is the plain stage above)
+_monolith_graphs = graphed(verify_body)
 _hash_graphs = graphed(_stage_hash)
 _prep_graphs = graphed(_stage_prep)
 _miller_graphs = graphed(_stage_miller)
@@ -472,6 +505,13 @@ def _msg_agg_enabled() -> bool:
     return os.environ.get("LIGHTHOUSE_TPU_MSG_AGG", "1") != "0"
 
 
+def _monolith_enabled() -> bool:
+    """The monolithic program (every batch through `verify_body` as one
+    graph) is OFF unless LIGHTHOUSE_TPU_MONOLITH=1; read per call, as the
+    JAX backend reads it."""
+    return os.environ.get("LIGHTHOUSE_TPU_MONOLITH") == "1"
+
+
 def _key_validate() -> bool:
     return _api().key_validate_enabled()
 
@@ -517,10 +557,17 @@ def _draw_weight_scalars(seed, n: int, n_b: int, rng=None) -> np.ndarray:
 # --- entry points --------------------------------------------------------------
 
 
-def run_marshalled(mb: Marshalled, timer=None) -> torch.Tensor:
-    """The staged device verify of one marshalled batch: the aggregated
-    path when the batch carries a grid, else the per-set path. Returns a
-    zero-dim bool tensor on the batch's device (no host sync)."""
+def run_marshalled(mb: Marshalled, timer=None, monolith=False) -> torch.Tensor:
+    """The device verify of one marshalled batch: with `monolith`, the
+    per-set draws (expanded by `h_idx` on the device, outside the graph,
+    as the JAX backend takes them outside `verify_jit`) through
+    `verify_body` as one graph, the grid ignored; else staged, the
+    aggregated path when the batch carries a grid, else the per-set path.
+    Returns a zero-dim bool tensor on the batch's device (no host sync)."""
+    if monolith:
+        run = timer or (lambda name, fn, *a: fn(*a))
+        return run("monolith", _monolith_graphs, mb.u[mb.h_idx], mb.pk, mb.sig,
+                   mb.scalars, mb.real)
     if mb.grid_idx is not None:
         return verify_device_aggregated(
             mb.u, mb.pk, mb.sig, mb.scalars, mb.real, mb.grid_idx, mb.grid_real,
@@ -547,20 +594,23 @@ def dispatch_verify_signature_sets(sets, seed=None, groups=None, index_pack=None
     """Marshal + enqueue, no host sync: a zero-dim device bool, or a plain
     False when a structural check already decided the batch. The keywords
     are the pipeline/scheduler duck type: precomputed message `groups`,
-    the gather route's `index_pack`, `pad_to`, and the `device`."""
+    the gather route's `index_pack`, `pad_to`, and the `device`. Under
+    LIGHTHOUSE_TPU_MONOLITH=1 every batch, aggregated ones too, takes the
+    per-set monolith (n_b + 1 Miller pairs)."""
     with tracing.span("bls_marshal", sets=len(sets)):
         mb = _marshal_batch(sets, device, seed=seed, groups=groups,
                             index_pack=index_pack, pad_to=pad_to)
     if mb is None:
         return False
     n_b = int(mb.real.shape[0])
-    aggregated = mb.grid_idx is not None
+    monolith = _monolith_enabled()
+    aggregated = mb.grid_idx is not None and not monolith
     # the aggregated path's Miller pairs ride the message bucket
     pairs = (int(mb.u.shape[0]) if aggregated else n_b) + 1
     new_key = _count_shape_bucket(*_shape_bucket(mb))
     with tracing.span("bls_dispatch", bucket=n_b):
         _count_pairs(mb.n_sets, pairs, aggregated=aggregated)
-        out = run_marshalled(mb)
+        out = run_marshalled(mb, monolith=monolith)
     launch_ledger.record(
         "dispatch",
         bucket=n_b,
@@ -788,3 +838,82 @@ class PubkeyTable:
         metrics.TPU_PUBKEY_GATHER_BATCHES.inc()
         metrics.TPU_PUBKEY_GATHER_BYTES.inc(idx.numel() * 3 * W * 4)
         return table[idx.clamp(0, table.shape[0] - 1)]
+
+
+# --- speculative verification: committee aggregate residency ----------------
+#
+# speculate/ precomputes one aggregate pubkey per (slot, committee) at the
+# epoch boundary. Those keys live here, in a device table next to the
+# validator PubkeyTable, and `correct_aggregate_device` subtracts a
+# committee's absent members from its cached full aggregate on the device.
+
+_committee_table: PubkeyTable | None = None
+
+
+def committee_table(device=None) -> PubkeyTable:
+    """The committee-aggregate table (empty on `device` until
+    `set_committee_aggregates` fills it)."""
+    global _committee_table
+    if _committee_table is None:
+        _committee_table = PubkeyTable(device)
+    return _committee_table
+
+
+def set_committee_aggregates(pubkeys, device=None) -> None:
+    """Replace the device-resident committee-aggregate family with a fresh
+    table on `device` (the card unless the caller asks for the CPU; per
+    precompute refresh: entries are epoch-scoped, so the table is rebuilt,
+    not grown). Also caches each key's `_tpu_limbs`."""
+    global _committee_table
+    table = PubkeyTable(device)
+    table.import_new_pubkeys(list(pubkeys))
+    _committee_table = table
+    if len(table):
+        b = _bucket(len(table), floor=8)
+        metrics.SPECULATE_TABLE_BYTES.set(b * 3 * W * 4)
+
+
+def _speculate_device_enabled() -> bool:
+    """The device correction is OFF unless LIGHTHOUSE_TPU_SPECULATE_DEVICE
+    is set to anything but "0"; read per call."""
+    return os.environ.get("LIGHTHOUSE_TPU_SPECULATE_DEVICE", "0") != "0"
+
+
+def _stage_correct(full, absent, absent_real):
+    """full (3, W) projective aggregate; absent (k_b, 3, W) padded member
+    points with a (k_b,) real mask -> affine corrected point
+    (full - sum(absent)) and its infinity flag."""
+    F = TC.FP
+    masked = TC.point_select(
+        absent_real, absent, TC.infinity(F, absent.shape[:1], absent.device), F)
+    s = TC.sum_points(masked, F)
+    corrected = TC.add(full, TC.neg(s, F), F)
+    aff, inf = TC.to_affine_g1(corrected[None])
+    return aff[0], inf[0]
+
+
+_correct_graphs = graphed(_stage_correct)
+
+
+def correct_aggregate_device(full_pk, absent_pks, device=None):
+    """The cached full-committee aggregate minus the absent members'
+    points, on `device` (the card unless the caller asks for the CPU), as
+    one graph per bucket of the absent count. Returns an oracle affine
+    Point, or None when the result is infinity (all members absent; the
+    caller aggregates on the host). The verdict's host read is part of
+    the API, as in the JAX backend."""
+    dev = resolve_device(device)
+    k = len(absent_pks)
+    k_b = _bucket(max(k, 1))
+    absent = np.broadcast_to(_INF_G1, (k_b, 3, W)).copy()
+    for i, pk in enumerate(absent_pks):
+        absent[i] = _pk_limbs(pk)
+    real = np.zeros(k_b, bool)
+    real[:k] = True
+    aff, inf = _correct_graphs(
+        _to_device(_pk_limbs(full_pk), dev), _to_device(absent, dev),
+        _to_device(real, dev))
+    if bool(inf):
+        return None
+    aff = aff.cpu().numpy()
+    return Point(Fp(L.to_int(aff[0])), Fp(L.to_int(aff[1])), False)

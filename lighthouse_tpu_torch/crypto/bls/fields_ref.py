@@ -49,7 +49,7 @@ class Fp:
     def inv(self) -> "Fp":
         if self.n == 0:
             raise ZeroDivisionError("Fp inverse of zero")
-        return Fp(pow(self.n, P - 2, P))
+        return Fp(pow(self.n, -1, P))  # the inverse a^(p-2), by Euclid
 
     def pow(self, e: int) -> "Fp":
         return Fp(pow(self.n, e, P))

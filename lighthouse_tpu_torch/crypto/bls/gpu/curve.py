@@ -10,13 +10,23 @@ Port of lighthouse_tpu/crypto/bls/tpu/curve.py, limb for limb:
     products of each formula run as one stacked call, the same products
     row for row.
   * `scalar_mul_static` walks a host exponent's bits in Python (the JAX
-    `lax.cond` becomes an `if`); `scalar_mul_u64` is the 64-step bit
-    ladder over per-row runtime weights with a branchless select.
+    `lax.cond` becomes an `if`). The runtime 64-bit weights have two
+    ladders: `_scalar_mul_u64_bit`, 64 doublings and 64 selected adds,
+    and `scalar_mul_u64_windowed`, a 16-entry table (14 adds) and 15
+    steps of 4 doublings and one gathered add. `scalar_mul_u64` is the
+    bit ladder, or the windowed one when LIGHTHOUSE_TPU_PALLAS=1 at
+    import. The JAX package reads that switch at import to turn on its
+    Pallas kernels and the windowed ladder with them; the port's kernels
+    are always on (on the card), so here it selects the ladder only. It
+    is read once: the stage graphs are keyed on shapes alone, and a
+    ladder chosen per call would replay a graph captured with the other.
   * psi(X:Y:Z) = (cx conj(X) : cy conj(Y) : conj(Z)) feeds the G2 subgroup
     check psi(P) == [x]P.
 """
 
 from __future__ import annotations
+
+import os as _os
 
 import numpy as np
 import torch
@@ -158,6 +168,12 @@ def double(p, F):
     return _stk([_coord(out, 0, F), _coord(out, 1, F), z3], F)
 
 
+def add_mixed(p, q_aff, q_inf, F):
+    """Projective + affine: q_aff = (x2, y2) stacked (..., 2, ...), q_inf a
+    bool mask; q lifted to projective, then the complete law."""
+    return add(p, from_affine(q_aff, q_inf, F), F)
+
+
 def neg(p, F):
     x, y, z = _coord(p, 0, F), _coord(p, 1, F), _coord(p, 2, F)
     return _stk([x, L.neg(y), z], F)
@@ -212,6 +228,55 @@ def scalar_mul_u64(p, scalars, F):
         acc = double(acc, F)
         acc = point_select(bits[k], add(acc, p, F), acc, F)
     return acc
+
+
+def scalar_digits(scalars, window: int = 4) -> torch.Tensor:
+    """(..., 2) weights (column 0 the high word, each in [0, 2^32), int64)
+    -> (64 / window, ...) int64 digits, MSB first; masked after the
+    shift, so no bit of another digit leaks in."""
+    assert 64 % window == 0 and 32 % window == 0
+    s = scalars.to(torch.int64)
+    shifts = torch.arange(32 - window, -1, -window, device=s.device,
+                          dtype=torch.int64)
+    digits = (s.unsqueeze(-1) >> shifts) & ((1 << window) - 1)  # (..., 2, 32/w)
+    digits = digits.reshape(s.shape[:-1] + (64 // window,))
+    return torch.movedim(digits, -1, 0)
+
+
+def scalar_mul_u64_windowed(p, scalars, F, window: int = 4):
+    """[s]P via a fixed-window ladder, as the JAX one computes it: the
+    table [0]P .. [2^window - 1]P built by sequential complete adds, then
+    per digit after the first `window` doublings and one add of the
+    gathered entry. The complete group law makes the infinity entry and
+    zero digits exception-free, so no select is needed."""
+    digits = scalar_digits(scalars, window)
+    batch = _batch(p, F)
+    tbl = [infinity(F, batch, p.device), p]
+    for _ in range(2, 1 << window):
+        tbl.append(add(tbl[-1], p, F))
+    table = torch.stack(tbl, dim=0)  # (2^window,) + batch + point dims
+    tail = (1,) * (F.coord_ndim + 1)
+
+    def gather(digit):
+        idx = digit.reshape((1,) + tuple(digit.shape) + tail)
+        return torch.gather(table, 0, idx.expand((1,) + tuple(table.shape[1:])))[0]
+
+    acc = gather(digits[0])
+    for digit in digits[1:]:
+        for _ in range(window):
+            acc = double(acc, F)
+        acc = add(acc, gather(digit), F)
+    return acc
+
+
+# LIGHTHOUSE_TPU_PALLAS=1 at import selects the windowed ladder (the JAX
+# package's switch, which also turns its Pallas kernels on); the bit
+# ladder stays reachable as `_scalar_mul_u64_bit` either way.
+_scalar_mul_u64_bit = scalar_mul_u64
+WINDOWED_LADDER = _os.environ.get("LIGHTHOUSE_TPU_PALLAS") == "1"
+if WINDOWED_LADDER:
+    def scalar_mul_u64(p, scalars, F):  # noqa: F811
+        return scalar_mul_u64_windowed(p, scalars, F)
 
 
 # --- cross-set reductions ---------------------------------------------------
@@ -344,6 +409,29 @@ def g2_subgroup_check(p) -> torch.Tensor:
 def g1_subgroup_check(p) -> torch.Tensor:
     """Definitional [r]P == O."""
     return is_infinity(scalar_mul_static(p, R, FP), FP)
+
+
+def on_curve_g1(p) -> torch.Tensor:
+    """Y^2 Z == X^3 + 4 Z^3 (projective form); infinity passes. The three
+    squares, then the three products, each in one call."""
+    sq = L.sq(p)  # X^2, Y^2, Z^2
+    m = L.mul(torch.stack([sq[..., 1, :], sq[..., 0, :], sq[..., 2, :]], dim=-2),
+              torch.stack([p[..., 2, :], p[..., 0, :], p[..., 2, :]], dim=-2))
+    lhs, x3, z3 = m[..., 0, :], m[..., 1, :], m[..., 2, :]
+    return L.eq(lhs, L.add(x3, L.mul_small(z3, 4))) | is_infinity(p, FP)
+
+
+def on_curve_g2(p) -> torch.Tensor:
+    """Y^2 Z == X^3 + (4 + 4u) Z^3; infinity passes."""
+    sq = T.fp2_sq(p)  # X^2, Y^2, Z^2
+    z = p[..., 2, :, :]
+    m = T.fp2_mul(
+        torch.stack([sq[..., 2, :, :], sq[..., 1, :, :], sq[..., 0, :, :]], dim=-3),
+        torch.stack([z, z, p[..., 0, :, :]], dim=-3),
+    )
+    b = T.fp2_mul_by_xi(T.fp2_mul_small(m[..., 0, :, :], 4))
+    rhs = T.fp2_add(m[..., 2, :, :], b)
+    return T.fp2_eq(m[..., 1, :, :], rhs) | is_infinity(p, FP2)
 
 
 # --- generators (host arrays) -----------------------------------------------

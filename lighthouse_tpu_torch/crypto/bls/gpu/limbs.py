@@ -73,6 +73,7 @@ P_LIMBS = to_limbs(P)
 _P_HI_LIMBS = to_limbs(P << BITS)  # p * 2^BITS, canon's split quotient
 _C_SHIFT = to_limbs(P << 14)  # canon's positivity shift, p * 2^14
 _KP = np.stack([to_limbs(k * P) for k in range(3)]).astype(np.int32)
+ZERO = np.zeros((W,), np.int32)
 ONE = to_limbs(1)
 # Toeplitz gather: TOEP_IDX[k, i] selects a_pad[k - i + W], so that the
 # product columns are one gather and one multiply-sum.
@@ -273,6 +274,12 @@ def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def is_zero(a: torch.Tensor) -> torch.Tensor:
     return torch.all(canon(a) == 0, dim=-1)
+
+
+def from_int(x: int) -> np.ndarray:
+    """Host: int -> its limbs mod p (a host array, like every constant
+    here; `on` puts it on a device)."""
+    return to_limbs(x % P)
 
 
 def to_fp_int(a) -> int:

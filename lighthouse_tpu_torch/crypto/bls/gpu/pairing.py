@@ -247,6 +247,13 @@ def fp12_prod(f, axis: int = 0):
     return f[0]
 
 
+def pairing(p_aff, p_inf, q_aff, q_inf):
+    """Single (batched) pairing e(P, Q)^3: the verifier's Miller loop and
+    final exponentiation per row; equal to the cube of the oracle
+    pairing."""
+    return final_exponentiation(miller_loop(p_aff, p_inf, q_aff, q_inf))
+
+
 def multi_pairing(p_aff, p_inf, q_aff, q_inf):
     """prod_i e(P_i, Q_i)^3 over the leading axis: batched Miller loops,
     halving product, ONE final exponentiation."""

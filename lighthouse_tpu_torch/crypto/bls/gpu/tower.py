@@ -29,6 +29,7 @@ import torch
 
 from ..constants import P
 from ..fields_ref import FROB_GAMMA as _REF_GAMMA
+from ..fields_ref import Fp2 as RefFp2
 from . import limbs as L
 
 W = L.W
@@ -39,6 +40,41 @@ W = L.W
 
 def fp2_from_ints(c0: int, c1: int) -> np.ndarray:
     return np.stack([L.to_limbs(c0 % P), L.to_limbs(c1 % P)])
+
+
+def fp2_pack(vals) -> np.ndarray:
+    """[(c0, c1), ...] -> (n, 2, W) host array."""
+    return np.stack([fp2_from_ints(a, b) for a, b in vals]).astype(np.int32)
+
+
+def fp2_to_ints(a) -> tuple[int, int]:
+    a = np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+    return L.to_fp_int(a[0]), L.to_fp_int(a[1])
+
+
+def fp12_pack_ref(x) -> np.ndarray:
+    """Oracle Fp12 -> (2, 3, 2, W) host array."""
+    out = np.zeros((2, 3, 2, W), np.int32)
+    for i, c6 in enumerate((x.c0, x.c1)):
+        for j, c2 in enumerate((c6.c0, c6.c1, c6.c2)):
+            out[i, j, 0] = L.to_limbs(c2.c0.n)
+            out[i, j, 1] = L.to_limbs(c2.c1.n)
+    return out
+
+
+def fp12_to_ref(a):
+    """(2, 3, 2, W) -> oracle Fp12 (host)."""
+    from ..fields_ref import Fp12 as RefFp12, Fp6 as RefFp6
+
+    a = np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+
+    def f2(x):
+        return RefFp2(L.to_fp_int(x[0]), L.to_fp_int(x[1]))
+
+    def f6(x):
+        return RefFp6(f2(x[0]), f2(x[1]), f2(x[2]))
+
+    return RefFp12(f6(a[0]), f6(a[1]))
 
 
 # --- Fp2 -------------------------------------------------------------------
@@ -164,6 +200,12 @@ def fp_inv(a):
     return fp_pow_static(a, P - 2)
 
 
+def fp_sqrt(a):
+    """Candidate sqrt a^((p+1)/4) (p = 3 mod 4); returns (root, is_square)."""
+    r = fp_pow_static(a, (P + 1) // 4)
+    return r, L.eq(L.sq(r), a)
+
+
 def _assoc_scan(fn, x):
     """Inclusive scan along axis 0 in `jax.lax.associative_scan`'s order:
     combine adjacent pairs, recurse on the half, fill the even slots."""
@@ -220,6 +262,17 @@ def fp2_batch_inv(a, axis: int = 0):
     return _fp2_scale_conj(a, fp_batch_inv(_fp2_norm(a), axis=axis))
 
 
+def fp2_pow_static(a, e: int):
+    """a^e for a host exponent: square-and-multiply from one, MSB first
+    (the JAX scan's select on a host bit becomes an `if`)."""
+    acc = fp2_one(a.shape[:-2], a.device)
+    for bit in _bits_msb_first(e):
+        acc = fp2_sq(acc)
+        if bit:
+            acc = fp2_mul(acc, a)
+    return acc
+
+
 # --- Fp6 -------------------------------------------------------------------
 
 
@@ -257,6 +310,11 @@ def fp6_mul_by_v(a):
     return torch.stack([fp2_mul_by_xi(_c(a, 2)), _c(a, 0), _c(a, 1)], dim=-3)
 
 
+def fp6_mul_fp2(a, s):
+    """Fp6 x Fp2 scalar: the three coefficient products in one call."""
+    return fp2_mul(a, s.unsqueeze(-3))
+
+
 def fp6_inv(a):
     a0, a1, a2 = _c(a, 0), _c(a, 1), _c(a, 2)
     sq = fp2_sq(torch.stack([a0, a2, a1], dim=-3))
@@ -268,6 +326,16 @@ def fp6_inv(a):
     d = fp2_add(_c(p, 0), fp2_mul_by_xi(fp2_add(_c(p, 1), _c(p, 2))))
     dinv = fp2_inv(d)
     return fp2_mul(torch.stack([t0, t1, t2], dim=-3), dinv.unsqueeze(-3))
+
+
+def fp6_zero(shape, device):
+    return torch.zeros(tuple(shape) + (3, 2, W), dtype=torch.int32, device=device)
+
+
+def fp6_one(shape, device):
+    o = fp6_zero(shape, device)
+    o[..., 0, 0, :] = L.on(L.ONE, device)
+    return o
 
 
 # --- Fp12 ------------------------------------------------------------------

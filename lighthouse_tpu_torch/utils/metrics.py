@@ -7,7 +7,8 @@ device telemetry of backends/torch_cuda.py.
 
 Exported names, types and help texts are the JAX package's, so the two
 registries compare line by line. The chain, network and speculation
-families wait for the modules that feed them."""
+families wait for the modules that feed them; of the last, only the
+committee table's size gauge is here, which torch_cuda feeds."""
 
 from __future__ import annotations
 
@@ -379,6 +380,11 @@ TPU_PUBKEY_GATHER_BATCHES = REGISTRY.counter(
     "tpu_pubkey_gather_batches_total",
     "Verification batches whose pubkeys were gathered from the "
     "device-resident table by validator index",
+)
+SPECULATE_TABLE_BYTES = REGISTRY.gauge(
+    "speculate_committee_table_bytes",
+    "Device-resident per-committee aggregate-pubkey table size in bytes "
+    "(lives next to the validator pubkey table in the jax_tpu backend)",
 )
 
 # -- continuous-batching scheduler (crypto/bls/scheduler.py); its

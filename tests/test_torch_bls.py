@@ -221,7 +221,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "crypto/bls/pairing_ref.py", "crypto/bls/backends/cpu.py",
                 "crypto/bls/backends/fake.py", "crypto/bls/backends/fallback.py",
                 "obs/ledger.py", "resilience/primitives.py", "utils/metrics.py",
-                "utils/tracing.py"):
+                "utils/tracing.py", "crypto/bls/adversary.py"):
         assert "lighthouse_tpu_torch/" + mod in walked, mod
     assert len(_port_files()) > 10
     assert not bad, bad

@@ -173,8 +173,10 @@ def test_pipeline_phase_runs_last_on_warmed_buckets():
     from lighthouse_tpu_torch.crypto.bls import scheduler as S
     from lighthouse_tpu_torch.crypto.bls.backends import torch_cuda as B
 
-    assert CS.ALL_PHASES[-1] == "pipeline"
-    assert set(CS.ALL_PHASES[:-1]) >= {"gossip", "aggregate", "warm", "table"}
+    at = CS.ALL_PHASES.index("pipeline")
+    assert set(CS.ALL_PHASES[:at]) >= {"gossip", "aggregate", "warm", "table"}
+    # after it only the phases that reuse none of its state
+    assert CS.ALL_PHASES[at + 1:] == ("monolith", "windowed", "correct", "adversary")
     warm = set(B.DEFAULT_WARM_BUCKETS)
     assert [b for b in CS.PIPELINE_BUCKETS if b not in warm] == [(1024, 4, 32)]
     assert (16, 4, 16) in warm and S.warm_capacity(64) == 64
@@ -334,3 +336,51 @@ def test_busy_card_dispatch_needs_submits_that_do_not_wait(dispatch_waits):
     out = CS.busy_card_dispatch(torch, Api(), _Pipeline, batches, "card")
     assert out["pageable_copy_ms"] > out["spin_ms"] / 2
     assert out["gossip"]["submit_ms"] < out["spin_ms"] / 4
+
+
+def test_env_pinned_sets_and_restores(monkeypatch):
+    monkeypatch.setenv("LIGHTHOUSE_TPU_MONOLITH", "0")
+    monkeypatch.delenv("LIGHTHOUSE_TPU_PALLAS", raising=False)
+    import os
+
+    with CS.env_pinned(LIGHTHOUSE_TPU_MONOLITH="1", LIGHTHOUSE_TPU_PALLAS="1"):
+        assert os.environ["LIGHTHOUSE_TPU_MONOLITH"] == "1"
+        assert os.environ["LIGHTHOUSE_TPU_PALLAS"] == "1"
+    assert os.environ["LIGHTHOUSE_TPU_MONOLITH"] == "0"
+    assert "LIGHTHOUSE_TPU_PALLAS" not in os.environ
+
+
+class _Proc:
+    def __init__(self, rc, paths):
+        import json
+
+        self.returncode = rc
+        self.stdout = "card line\n" + json.dumps({"paths": paths}) + "\n{\"ok\": true}"
+        self.stderr = ""
+
+
+@pytest.mark.parametrize("rc, fails", [(0, None), (1, "child exited 1")])
+def test_windowed_phase_runs_a_child_with_the_switch(monkeypatch, rc, fails):
+    """The windowed phase starts this script again with
+    LIGHTHOUSE_TPU_PALLAS=1 and the windowed-child phase, fails on its
+    nonzero exit, and adds the child's launches to the run's."""
+    import subprocess
+
+    seen = {}
+    counts = {"fp_mul": 3, "fp_sq": 4}
+    child = {"gossip": {"launches": counts}, "aggregate": {"launches": counts}}
+
+    def run(cmd, env, **kw):
+        seen.update(cmd=cmd, pallas=env.get("LIGHTHOUSE_TPU_PALLAS"))
+        return _Proc(rc, {"windowed-child": child})
+
+    monkeypatch.setattr(subprocess, "run", run)
+    launches = {"fp_mul": 1}
+    if fails:
+        with pytest.raises(CS.Fail, match=fails):
+            CS.phase_windowed("card", launches)
+        return
+    out = CS.phase_windowed("card", launches)
+    assert seen["pallas"] == "1" and seen["cmd"][-2:] == ["--phases", "build,windowed-child"]
+    assert launches == {"fp_mul": 7, "fp_sq": 8} and out["gossip"] == child["gossip"]
+    assert "windowed-child" in CS.CHILD_PHASES and "windowed-child" not in CS.ALL_PHASES

@@ -137,7 +137,8 @@ def test_metric_families_same_names_types_and_help():
                  "TPU_COMPILE_CACHE_HITS", "TPU_COMPILE_CACHE_MISSES",
                  "TPU_WARM_COMPILE_SECONDS", "TPU_TRANSFER_BYTES",
                  "TPU_MARSHAL_BATCH_BYTES", "TPU_PUBKEY_TABLE_BYTES",
-                 "TPU_PUBKEY_GATHER_BYTES", "TPU_PUBKEY_GATHER_BATCHES"):
+                 "TPU_PUBKEY_GATHER_BYTES", "TPU_PUBKEY_GATHER_BATCHES",
+                 "SPECULATE_TABLE_BYTES"):
         assert getattr(TM, attr).name == getattr(JM, attr).name, attr
     assert {k: v.name for k, v in TM.SCHEDULER_VERDICT_DELAY.items()} == {
         k: v.name for k, v in JM.SCHEDULER_VERDICT_DELAY.items()}

@@ -103,6 +103,42 @@ def test_miller_loop_counts_one_step_launch_per_bit():
     assert calls == {"dbl": 63, "add": 5}
 
 
+def _pairing_is_oracle_cube(got, pairs):
+    canon = L.canon(got).cpu().numpy()
+    for i, (p, q) in enumerate(pairs):
+        np.testing.assert_array_equal(
+            canon[i], JT.fp12_pack_ref(PR.pairing(p, q).pow(3)))
+
+
+def test_pairing_is_the_oracle_cube():
+    """`pairing` (Miller loop and final exponentiation per row) on two
+    pairs, one with an infinity: the cube of the oracle pairing."""
+    pairs, args = _pairs()
+    pairs, args = pairs[1:3], [a[1:3] for a in args]
+    got = TP.pairing(*(torch.as_tensor(np.array(a)) for a in args))
+    _pairing_is_oracle_cube(got, pairs)
+
+
+@pytest.mark.slow
+def test_pairing_bitexact_with_jax():
+    """JAX's jitted `pairing` compiles the final exponentiation: minutes on
+    a CPU."""
+    _, args = _pairs()
+    assert_same(JP.pairing, TP.pairing, *args)
+
+
+@pytest.mark.gpu
+def test_pairing_on_card_bitexact_with_cpu_and_oracle_cube():
+    """The slow test's twin: `pairing` on the card, through the kernels,
+    gives the CPU plain version's limbs and the oracle pairing's cube."""
+    dev = need_card()
+    pairs, args = _pairs()
+    got = TP.pairing(*(torch.as_tensor(np.array(a)).to(dev) for a in args))
+    want = TP.pairing(*(torch.as_tensor(np.array(a)) for a in args))
+    assert torch.equal(got.cpu(), want)
+    _pairing_is_oracle_cube(got, pairs)
+
+
 def test_fp12_prod_bitexact():
     rng = np.random.default_rng(73)
     assert_same(JP.fp12_prod, TP.fp12_prod, lazy(rng, (3, 2, 3, 2)))

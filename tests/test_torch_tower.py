@@ -104,6 +104,43 @@ def test_fp12_mul_bitexact_with_broadcast():
     )
 
 
+def test_fp_sqrt_bitexact():
+    """The root and the is-square flag: squares of random elements, random
+    lazy limbs (about half non-squares) and all-maximal limbs."""
+    rng = np.random.default_rng(45)
+    xs = [int(v) for v in rng.integers(1, 1 << 62, size=2)]
+    squares = np.stack([T.fp2_from_ints(x * x, 0)[0] for x in xs])
+    a = np.concatenate([squares, lazy(rng, (3,), maximal_rows=1)])
+    assert_same(JT.fp_sqrt, T.fp_sqrt, a)
+    assert T.fp_sqrt(torch.as_tensor(a))[1][:2].tolist() == [True, True]
+
+
+@pytest.mark.parametrize("e", [1, 6, (P * P - 9) // 16], ids=["1", "6", "p2"])
+def test_fp2_pow_static_bitexact(e):
+    rng = np.random.default_rng(46)
+    assert_same(
+        lambda a: JT.fp2_pow_static(a, e), lambda a: T.fp2_pow_static(a, e),
+        lazy(rng, (3, 2), maximal_rows=1),
+    )
+
+
+def test_fp6_mul_fp2_and_tower_helpers_bitexact():
+    rng = np.random.default_rng(47)
+    assert_same(JT.fp6_mul_fp2, T.fp6_mul_fp2,
+                lazy(rng, (3, 3, 2), maximal_rows=1), lazy(rng, (3, 2), maximal_rows=1))
+    np.testing.assert_array_equal(
+        T.fp6_one((2,), "cpu").numpy(), np.asarray(JT.fp6_one((2,))))
+    np.testing.assert_array_equal(
+        T.fp6_zero((2,), "cpu").numpy(), np.asarray(JT.fp6_zero((2,))))
+    vals = [(3, P - 1), (P + 5, 7)]
+    np.testing.assert_array_equal(T.fp2_pack(vals), np.asarray(JT.fp2_pack(vals)))
+    assert T.fp2_to_ints(torch.as_tensor(T.fp2_pack(vals)[1])) == (5, 7)
+    f = lazy(rng, (2, 3, 2))
+    ref = T.fp12_to_ref(torch.as_tensor(f))
+    jref = JT.fp12_to_ref(f)
+    np.testing.assert_array_equal(T.fp12_pack_ref(ref), JT.fp12_pack_ref(jref))
+
+
 def test_frobenius_constants_equal_jax():
     np.testing.assert_array_equal(T._GAMMA_J, np.asarray(JT._GAMMA_J))
 
