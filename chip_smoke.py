@@ -109,6 +109,37 @@ Phases (each one fails the run with a nonzero exit):
              accepted probe, rejected control or disagreement between
              paths fails the run; the probe buckets and the monolith are
              warmed first, and their capture seconds reported
+  block      one mainnet-shaped block's signatures, through the chain's
+             wiring: the port's interop_genesis_state under MAINNET with
+             altair at epoch 0, its registry tiled to 16,384 validators
+             (4 committees of 128 a slot) from 1,024 distinct interop
+             keys (a key costs ~19 ms of pure Python to decompress and
+             subgroup-check in the pubkey cache, so 16,384 distinct ones
+             would cost ~5 min; committee widths, set and key counts are
+             the untiled registry's), process_slots to slot 31, a
+             ValidatorPubkeyCache whose device table is on the card; a
+             SignedBeaconBlockAltair with 128 attestations (the 124
+             committees of slots 0-30, all bits, and 4 more aggregates of
+             slot 30's committees over other bit subsets), a full sync
+             aggregate (512 keys), the randao reveal and the proposal:
+             131 sets, 16,894 keys gathered by index. BlockSignatureVerifier
+             with the cache's getter and resolver (every key table-tagged):
+             honest True, one attestation signed over a wrong root False,
+             the same verdicts as the cpu oracle on the same sets, the
+             gathered pk equal to the host-packed one, launches as the
+             code implies; host ms to build the sets and to marshal,
+             first-call s and replayed ms
+  attestations  gossip batches through a BeaconProcessor whose handlers
+             submit them (`submit_*_batch`) and return the PendingBatch: 64
+             unaggregated attestations of slot 30 from 64 distinct
+             attesters and 32 SignedAggregateAndProofs (3 sets each) from
+             members that is_aggregator selects, over the block phase's
+             registry: every honest item verified, the same verdicts as
+             the sync batch_verify_*; then each batch with 1 and with 3
+             planted forgeries: exactly those rejected ("invalid
+             signature"), every other item verified, the bisection within
+             k (ceil(log2 n) + 1) extra backend calls; att_setup,
+             verify-wait and bisection ms from the port's spans
 
 The entry points run each stage as a CUDA graph: in every path the first
 verify of a batch captures its stages and the verifies after it replay
@@ -145,7 +176,7 @@ import time
 ALL_PHASES = (
     "build", "kernels", "parity", "gossip", "aggregate", "warm", "table",
     "aggverify", "graphs", "pipeline", "monolith", "windowed", "correct",
-    "adversary",
+    "adversary", "block", "attestations",
 )
 # run only as the windowed phase's child process
 CHILD_PHASES = ("windowed-child",)
@@ -1698,6 +1729,651 @@ def aggregate_sets(api):
     return sets, forged
 
 
+# --- the beacon chain's signature-verification consumers (block, attestations)
+
+
+BLOCK_VALIDATORS = 16384  # 16384 // 32 // 128 = 4 committees of 128 a slot
+BLOCK_DISTINCT_KEYS = 1024  # the registry is tiled from this many interop keys
+BLOCK_SLOT = 31  # the last slot of epoch 0: slots 0-30 have 124 committees
+GOSSIP_UNAGGREGATED = 64  # the beacon processor's gossip batch
+GOSSIP_AGGREGATES = 32
+FORGED_UNAGGREGATED = ((17,), (5, 33, 60))
+FORGED_AGGREGATES = ((11,), (3, 19, 28))
+
+
+def consensus_modules():
+    """The port's consensus modules that the block and attestations
+    phases drive, as one namespace."""
+    import importlib
+    from types import SimpleNamespace
+
+    names = dict(
+        ssz="ssz", types="types", helpers="types.helpers",
+        per_slot="state_transition.per_slot", context="state_transition.context",
+        bsv="state_transition.block_signature_verifier",
+        pubkey_cache="chain.pubkey_cache", att="chain.attestation_verification",
+        observed="pool.observed", processor="processor", api="crypto.bls.api",
+        curve="crypto.bls.curve_ref", fields="crypto.bls.fields_ref",
+        metrics="utils.metrics", tracing="utils.tracing",
+    )
+    return SimpleNamespace(**{
+        k: importlib.import_module("lighthouse_tpu_torch." + v)
+        for k, v in names.items()})
+
+
+# The block and attestations phases' pure-Python crypto (interop keys,
+# signatures, the cpu oracle) costs minutes of one host core; on a host
+# pool it runs on the machine's cores. Worker functions take and return
+# plain ints and bytes.
+
+
+def host_pool():
+    """Worker processes for the phases' host crypto: spawned (no card
+    state reaches them; the port's oracle modules import no torch), shut
+    down by the caller (`with`)."""
+    import concurrent.futures
+    import multiprocessing
+
+    return concurrent.futures.ProcessPoolExecutor(
+        max_workers=max(1, min(8, os.cpu_count() or 1)),
+        mp_context=multiprocessing.get_context("spawn"))
+
+
+def _pubkey_xy(index):
+    """Worker: the affine coordinates of interop key `index`."""
+    from lighthouse_tpu_torch.types import interop_keypair
+
+    p = interop_keypair(index)[1].point
+    return p.x.n, p.y.n
+
+
+def _sign(scalar, root):
+    """Worker: the signature of secret `scalar` (mod r) over `root`."""
+    from lighthouse_tpu_torch.crypto.bls import api
+    from lighthouse_tpu_torch.crypto.bls.constants import R
+
+    return api.SecretKey(scalar % R).sign(root).to_bytes()
+
+
+def _oracle(sets, seed):
+    """Worker: the cpu oracle backend's verdict on sets given as
+    ([(x, y) of each key], message, signature bytes); the keys are the
+    caller's validated ones."""
+    from lighthouse_tpu_torch.crypto.bls import api
+    from lighthouse_tpu_torch.crypto.bls.backends import cpu
+    from lighthouse_tpu_torch.crypto.bls.curve_ref import Point
+    from lighthouse_tpu_torch.crypto.bls.fields_ref import Fp
+
+    keys = {}
+
+    def key(xy):
+        if xy not in keys:
+            keys[xy] = api.PublicKey(Point(Fp(xy[0]), Fp(xy[1])), subgroup_checked=True)
+        return keys[xy]
+
+    return cpu.verify_signature_sets([
+        api.SignatureSet.multiple_pubkeys(
+            api.Signature.from_bytes(sig), [key(xy) for xy in pks], msg)
+        for pks, msg, sig in sets], seed=seed)
+
+
+def oracle_job(sets):
+    """Sets in `_oracle`'s plain form."""
+    return [([(k.point.x.n, k.point.y.n) for k in s.pubkeys], bytes(s.message),
+             s.signature.to_bytes()) for s in sets]
+
+
+class HostCrypto:
+    """The phases' host crypto: signatures made a pass at a time, interop
+    keys, the cpu oracle's verdicts; on the host pool when there is one,
+    else in this process."""
+
+    def __init__(self, pool=None):
+        self.pool = pool
+
+    def sign(self, jobs):
+        """[(secret scalars, root)] -> [signature bytes], each made once
+        from its scalars summed mod r (the aggregate of their
+        signatures)."""
+        args = [(sum(scalars), root) for scalars, root in jobs]
+        if not args:
+            return []
+        if self.pool is None:
+            return [_sign(k, r) for k, r in args]
+        return list(self.pool.map(_sign, *zip(*args)))
+
+    def map(self, fn, items):
+        return list(map(fn, items) if self.pool is None else self.pool.map(fn, items))
+
+    def oracle(self, batches, seed):
+        """A callable that returns the cpu oracle backend's verdict on each
+        batch of sets: computed on the pool meanwhile, else when called."""
+        jobs = [oracle_job(sets) for sets in batches]
+        if self.pool is None:
+            return lambda: [_oracle(job, seed) for job in jobs]
+        futures = [self.pool.submit(_oracle, job, seed) for job in jobs]
+        return lambda: [f.result() for f in futures]
+
+
+def registry_state(C, preset, spec, validators, distinct, host):
+    """The port's interop_genesis_state of `validators` validators whose
+    keys are tiled from `distinct` interop keys: validator i holds interop
+    key i % distinct (interop_keypair is swapped for the call, the keys
+    made by `host`). Returns (state, secret_of), secret_of(i)
+    the scalar of validator i's key."""
+    I = C.types.interop
+    keys = [C.api.PublicKey(C.curve.Point(C.fields.Fp(x), C.fields.Fp(y)),
+                            subgroup_checked=True)
+            for x, y in host.map(_pubkey_xy, range(distinct))]
+    keypair = I.interop_keypair
+    I.interop_keypair = lambda i: (I.interop_secret_key(i % distinct), keys[i % distinct])
+    try:
+        state = I.interop_genesis_state(validators, preset, spec)
+    finally:
+        I.interop_keypair = keypair
+
+    def secret_of(i):
+        return C.types.interop_secret_key(i % distinct).scalar
+
+    return state, secret_of
+
+
+def attestation_data(C, state, slot, index, preset):
+    """AttestationData for (slot, committee index) as seen from `state`
+    (past `slot`), as the chain's attesters build it."""
+    H = C.helpers
+    epoch = slot // preset.slots_per_epoch
+    head = H.get_block_root_at_slot(state, slot, preset)
+    target_slot = epoch * preset.slots_per_epoch
+    target = (H.get_block_root_at_slot(state, target_slot, preset)
+              if target_slot < state.slot else head)
+    source = (state.current_justified_checkpoint
+              if epoch == state.slot // preset.slots_per_epoch
+              else state.previous_justified_checkpoint)
+    return C.types.AttestationData(
+        slot=slot, index=index, beacon_block_root=head, source=source,
+        target=C.types.Checkpoint(epoch=epoch, root=target))
+
+
+def attester_root(C, state, data, preset):
+    domain = C.types.get_domain(
+        state, C.types.DOMAIN_BEACON_ATTESTER, data.target.epoch, preset)
+    return C.types.compute_signing_root(data, domain)
+
+
+def wrong_root(root):
+    return bytes(b ^ 0xFF for b in root)
+
+
+def build_block(C, state, preset, spec, secret_of, host):
+    """One SignedBeaconBlockAltair at `state.slot` (slot processing done):
+    an attestation of every committee of the slots it may include (the
+    inclusion window, at most MAX_ATTESTATIONS), all bits set; one more
+    aggregate of each committee of the last slot over another bit subset
+    (its member k dropped), as blocks do carry, while room is left; a
+    full sync aggregate; the randao reveal and the proposal signature."""
+    T = C.types
+    t = T.types_for(preset)
+    slot, spe = state.slot, preset.slots_per_epoch
+    epoch = slot // spe
+    ctxt = C.context.ConsensusContext(preset, spec)
+    atts, jobs = [], []
+
+    def attest(s, index, committee, bits):
+        data = attestation_data(C, state, s, index, preset)
+        atts.append(t.Attestation(aggregation_bits=bits, data=data))
+        jobs.append(([secret_of(v) for v, b in zip(committee, bits) if b],
+                     attester_root(C, state, data, preset)))
+
+    for s in range(max(0, slot - spe), slot):
+        cache = ctxt.committee_cache(state, s // spe)
+        for index, committee in enumerate(cache.get_all_committees_at_slot(s)):
+            attest(s, index, committee, tuple(True for _ in committee))
+    last = slot - 1
+    cache = ctxt.committee_cache(state, last // spe)
+    for index, committee in enumerate(cache.get_all_committees_at_slot(last)):
+        if len(atts) >= preset.max_attestations:
+            break
+        k = index % len(committee)
+        attest(last, index, committee, tuple(i != k for i in range(len(committee))))
+    del atts[preset.max_attestations:], jobs[preset.max_attestations:]
+
+    first = {}
+    for i, v in enumerate(state.validators):
+        first.setdefault(bytes(v.pubkey), i)
+    members = [first[bytes(pk)] for pk in state.current_sync_committee.pubkeys]
+    sync_domain = T.get_domain(state, T.DOMAIN_SYNC_COMMITTEE,
+                               max(slot - 1, 0) // spe, preset)
+    parent_root = state.latest_block_header.tree_hash_root()
+    jobs.append(([secret_of(m) for m in members], T.SigningData(
+        object_root=parent_root, domain=sync_domain).tree_hash_root()))
+    proposer = C.per_slot.get_beacon_proposer_index(state, preset, spec)
+    jobs.append(([secret_of(proposer)], T.SigningData(
+        object_root=C.ssz.uint64.hash_tree_root(epoch),
+        domain=T.get_domain(state, T.DOMAIN_RANDAO, epoch, preset)).tree_hash_root()))
+    sigs = host.sign(jobs)
+    for att, sig in zip(atts, sigs):
+        att.signature = sig
+    body = t.BeaconBlockBodyAltair(
+        randao_reveal=sigs[-1], eth1_data=state.eth1_data, attestations=tuple(atts),
+        sync_aggregate=t.SyncAggregate(
+            sync_committee_bits=tuple(True for _ in members),
+            sync_committee_signature=sigs[-2]))
+    block = t.BeaconBlockAltair(slot=slot, proposer_index=proposer,
+                                parent_root=parent_root, state_root=bytes(32),
+                                body=body)
+    domain = T.get_domain(state, T.DOMAIN_BEACON_PROPOSER, epoch, preset)
+    signature, = host.sign([([secret_of(proposer)],
+                               T.compute_signing_root(block, domain))])
+    return t.SignedBeaconBlockAltair(message=block, signature=signature)
+
+
+def forge_attestation(C, state, preset, spec, secret_of, block, k, host):
+    """A copy of `block` whose attestation k is signed by its members over
+    a wrong root."""
+    forged = type(block).from_ssz_bytes(block.as_ssz_bytes())
+    atts = list(forged.message.body.attestations)
+    ctxt = C.context.ConsensusContext(preset, spec)
+    members = ctxt.get_indexed_attestation(state, atts[k]).attesting_indices
+    root = attester_root(C, state, atts[k].data, preset)
+    atts[k].signature, = host.sign([([secret_of(v) for v in members],
+                                       wrong_root(root))])
+    forged.message.body.attestations = tuple(atts)
+    return forged
+
+
+def block_key_count(sets) -> int:
+    return sum(len(s.pubkeys) for s in sets)
+
+
+def untagged(C, sets):
+    """The sets with every pubkey replaced by an untagged copy of the same
+    validated point: the host-packed route's batch."""
+    return [C.api.SignatureSet.multiple_pubkeys(
+        s.signature, [C.api.PublicKey(k.point, k.to_bytes(), subgroup_checked=True)
+                      for k in s.pubkeys], s.message) for s in sets]
+
+
+def gossip_unaggregated(C, state, preset, spec, secret_of, slot, n, host):
+    """n single-bit attestations at `slot` from n distinct attesters, taken
+    round robin over the slot's committees (position 0 of each, then 1,
+    ...)."""
+    t = C.types.types_for(preset)
+    cache = C.context.ConsensusContext(preset, spec).committee_cache(
+        state, slot // preset.slots_per_epoch)
+    committees = cache.get_all_committees_at_slot(slot)
+    datas = [attestation_data(C, state, slot, i, preset) for i in range(len(committees))]
+    out, jobs = [], []
+    for pos in range(max(len(c) for c in committees)):
+        for index, committee in enumerate(committees):
+            if len(out) == n or pos >= len(committee):
+                continue
+            out.append(t.Attestation(
+                aggregation_bits=tuple(i == pos for i in range(len(committee))),
+                data=datas[index]))
+            jobs.append(([secret_of(committee[pos])],
+                         attester_root(C, state, datas[index], preset)))
+    need(len(out) == n, f"gossip: {len(out)} of {n} unaggregated attestations")
+    for att, sig in zip(out, host.sign(jobs)):
+        att.signature = sig
+    return out
+
+
+SELECTION_CHUNK = 16  # selection proofs signed at once while seeking aggregators
+
+
+def gossip_aggregates(C, state, preset, spec, secret_of, n, host, per_committee=2):
+    """n SignedAggregateAndProofs from the committees of the slots before
+    `state.slot`, newest first: in each committee the first
+    `per_committee` members whose real selection proof passes
+    is_aggregator, the k-th aggregating every member but member k (so
+    each aggregate has its own root)."""
+    T = C.types
+    t = T.types_for(preset)
+    spe = preset.slots_per_epoch
+    ctxt = C.context.ConsensusContext(preset, spec)
+    found = []  # (slot, index, committee, aggregator, proof, k)
+    for slot in range(state.slot - 1, -1, -1):
+        epoch = slot // spe
+        sel_root = T.SigningData(
+            object_root=C.ssz.uint64.hash_tree_root(slot),
+            domain=T.get_domain(state, T.DOMAIN_SELECTION_PROOF, epoch, preset),
+        ).tree_hash_root()
+        committees = ctxt.committee_cache(state, epoch).get_all_committees_at_slot(slot)
+        for index, committee in enumerate(committees):
+            k = 0
+            for c0 in range(0, len(committee), SELECTION_CHUNK):
+                chunk = committee[c0:c0 + SELECTION_CHUNK]
+                proofs = host.sign([([secret_of(m)], sel_root) for m in chunk])
+                for member, proof in zip(chunk, proofs):
+                    if (len(found) < n and k < per_committee
+                            and C.att.is_aggregator(len(committee), proof, spec)):
+                        found.append((slot, index, committee, member, proof, k))
+                        k += 1
+                if len(found) == n or k == per_committee:
+                    break
+        if len(found) == n:
+            break
+    need(len(found) == n, f"gossip: {len(found)} of {n} aggregators")
+    aggregates, jobs = [], []
+    for slot, index, committee, _, _, k in found:
+        data = attestation_data(C, state, slot, index, preset)
+        bits = tuple(i != k for i in range(len(committee)))
+        aggregates.append(t.Attestation(aggregation_bits=bits, data=data))
+        jobs.append(([secret_of(v) for v, b in zip(committee, bits) if b],
+                     attester_root(C, state, data, preset)))
+    for att, sig in zip(aggregates, host.sign(jobs)):
+        att.signature = sig
+    msgs, jobs = [], []
+    for (slot, _, _, member, proof, _), att in zip(found, aggregates):
+        msg = t.AggregateAndProof(aggregator_index=member, aggregate=att,
+                                  selection_proof=proof)
+        domain = T.get_domain(state, T.DOMAIN_AGGREGATE_AND_PROOF, slot // spe, preset)
+        msgs.append(msg)
+        jobs.append(([secret_of(member)], T.compute_signing_root(msg, domain)))
+    return [t.SignedAggregateAndProof(message=msg, signature=sig)
+            for msg, sig in zip(msgs, host.sign(jobs))]
+
+
+def forge_gossip(C, state, preset, spec, secret_of, items, positions, host):
+    """A copy of the gossip list whose items at `positions` are signed by
+    their signer over a wrong root: an attestation by its attester, an
+    aggregate its aggregate-and-proof signature by its aggregator."""
+    T = C.types
+    spe = preset.slots_per_epoch
+    ctxt = C.context.ConsensusContext(preset, spec)
+    out, jobs = list(items), []
+    for i in positions:
+        item = type(items[i]).from_ssz_bytes(items[i].as_ssz_bytes())
+        if hasattr(item, "aggregation_bits"):
+            data = item.data
+            committee = ctxt.committee_cache(state, data.slot // spe).get_beacon_committee(
+                data.slot, data.index)
+            signer = committee[list(item.aggregation_bits).index(True)]
+            root = attester_root(C, state, data, preset)
+        else:
+            msg = item.message
+            signer = msg.aggregator_index
+            domain = T.get_domain(state, T.DOMAIN_AGGREGATE_AND_PROOF,
+                                  msg.aggregate.data.slot // spe, preset)
+            root = T.compute_signing_root(msg, domain)
+        jobs.append(([secret_of(signer)], wrong_root(root)))
+        out[i] = item
+    for i, sig in zip(positions, host.sign(jobs)):
+        out[i].signature = sig
+    return out
+
+
+def bisection_bound(k: int, n: int) -> int:
+    """Extra backend calls the bisection may spend on k bad items among n
+    (tests/test_bls_pipeline.py test_k_bad_costs_k_log_n)."""
+    return k * (math.ceil(math.log2(n)) + 1) if n > 1 else 0
+
+
+class _WallClock:
+    """The tracer's clock on the host's monotonic seconds (the port's
+    default tracer steps a counter), so span durations are times."""
+
+    @staticmethod
+    def now() -> float:
+        return time.perf_counter()
+
+
+def span_ms(C, *names) -> dict:
+    spans = C.tracing.default_tracer().finished_spans()
+    return {n: sum(sp.duration() for sp in spans if sp.name == n) * 1e3 for n in names}
+
+
+def gossip_chain(C, state, preset, spec, cache, current_slot):
+    """The chain as attestation_verification reads it: its clock, preset
+    and spec, the known block roots, the head state, the pubkey cache,
+    no validator monitor."""
+    from types import SimpleNamespace
+
+    roots = {bytes(r) for r in state.block_roots}
+    return SimpleNamespace(current_slot=current_slot, preset=preset, spec=spec,
+                           _states={r: state for r in roots}, head_state=state,
+                           pubkey_cache=cache, validator_monitor=None)
+
+
+def process_gossip(C, chain, unaggregated=(), aggregates=()):
+    """The batches through a BeaconProcessor whose gossip handlers submit
+    them (`submit_*_batch`) and return the PendingBatch, kept as a
+    DeferredWork whose completion records (verified, rejected). Returns
+    ({"unaggregated" | "aggregate": (verified, rejected)}, processor)."""
+    O = C.observed
+    attesters, aggs, aggregators = (O.ObservedAttesters(), O.ObservedAggregates(),
+                                    O.ObservedAggregators())
+    out = {}
+
+    def deferred(name, pending):
+        def complete():
+            out[name] = pending.complete()
+        return C.processor.DeferredWork(done=pending.done, complete=complete)
+
+    bp = C.processor.BeaconProcessor(handlers={
+        "gossip_attestation": lambda items: deferred(
+            "unaggregated", C.att.submit_unaggregated_batch(chain, items, attesters)),
+        "gossip_aggregate": lambda items: deferred(
+            "aggregate", C.att.submit_aggregate_batch(chain, items, aggs, aggregators)),
+    })
+    for a in unaggregated:
+        need(bp.submit("gossip_attestation", a), "gossip: attestation queue full")
+    for a in aggregates:
+        need(bp.submit("gossip_aggregate", a), "gossip: aggregate queue full")
+    bp.run_until_idle()
+    need(not bp.handler_errors, f"gossip: processor handler errors {bp.last_error}")
+    return out, bp
+
+
+def verdicts(items, result):
+    """(verified, rejected) of a batch as ({root}, {root: reason}) of its
+    items."""
+    verified, rejected = result
+    root = {id(a): a.tree_hash_root() for a in items}
+    got = set()
+    for v in verified:
+        item = v.attestation if hasattr(v, "attestation") else v.signed_aggregate
+        got.add(root[id(item)])
+    return got, {root[id(a)]: why for a, why in rejected}
+
+
+def registry(torch, C, host, card):
+    """The mainnet-shaped registry both phases run over: interop genesis
+    under MAINNET with altair at epoch 0, tiled to BLOCK_VALIDATORS, slot
+    processing to BLOCK_SLOT, and a ValidatorPubkeyCache over it whose
+    device table is on the card. `host` makes the keys and, later, the
+    phases' signatures and oracle verdicts."""
+    T = C.types
+    preset, spec = T.MAINNET, T.ChainSpec.interop(altair_fork_epoch=0)
+    t0 = time.perf_counter()
+    state, secret_of = registry_state(C, preset, spec, BLOCK_VALIDATORS,
+                                      BLOCK_DISTINCT_KEYS, host)
+    t1 = time.perf_counter()
+    state = C.per_slot.process_slots(state, BLOCK_SLOT, preset, spec)
+    t2 = time.perf_counter()
+    cache = C.pubkey_cache.ValidatorPubkeyCache(state)
+    t3 = time.perf_counter()
+    table = cache.device_table()
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    need(table.device.type == "cuda" and len(cache) == BLOCK_VALIDATORS,
+         f"registry: {len(cache)} keys, table on {table.device}")
+    cpc = C.context.ConsensusContext(preset, spec).committee_cache(state, 0)
+    need(cpc.committees_per_slot == 4 and
+         len(cpc.get_beacon_committee(0, 0)) == 128,
+         f"registry: {cpc.committees_per_slot} committees a slot")
+    out = dict(validators=BLOCK_VALIDATORS, distinct_keys=BLOCK_DISTINCT_KEYS,
+               genesis_s=t1 - t0, slots_s=t2 - t1, cache_import_s=t3 - t2,
+               table_upload_ms=(t4 - t3) * 1e3)
+    log(f"registry: {BLOCK_VALIDATORS} validators tiled from "
+        f"{BLOCK_DISTINCT_KEYS} interop keys, {preset.name}, altair: genesis "
+        f"{out['genesis_s']:.1f} s, process_slots to {BLOCK_SLOT} "
+        f"{out['slots_s']:.1f} s, pubkey cache {out['cache_import_s']:.1f} s, "
+        f"device table {out['table_upload_ms']:.1f} ms; card: {card}")
+    from types import SimpleNamespace
+
+    return SimpleNamespace(state=state, preset=preset, spec=spec, cache=cache,
+                           secret_of=secret_of, host=host, summary=out)
+
+
+def phase_block(torch, K, TP, B, C, reg, launches, card):
+    """One mainnet-shaped block's signatures through the chain's wiring;
+    the cpu oracle's two verdicts run on the host pool meanwhile."""
+    state, preset, spec, cache, host = reg.state, reg.preset, reg.spec, reg.cache, reg.host
+    t0 = time.perf_counter()
+    block = build_block(C, state, preset, spec, reg.secret_of, host)
+    forged = forge_attestation(C, state, preset, spec, reg.secret_of, block, 7, host)
+    sign_s = time.perf_counter() - t0
+
+    def verifier(signed):
+        v = C.bsv.BlockSignatureVerifier(
+            state, preset, spec, get_pubkey=cache.getter(state),
+            resolve_pubkey=cache.resolve)
+        t = time.perf_counter()
+        v.include_all_signatures(signed)
+        return v, (time.perf_counter() - t) * 1e3
+
+    v, build_ms = verifier(block)
+    fv, _ = verifier(forged)
+    t_oracle = time.perf_counter()
+    oracle = host.oracle([v.sets, fv.sets], seed=31)
+    sets, keys = len(v.sets), block_key_count(v.sets)
+    need(sets == 131 and len(block.message.body.attestations) == 128,
+         f"block: {sets} sets")
+    need(16384 <= keys <= 16900, f"block: {keys} keys")
+    need(B._common_table(v.sets) is cache, "block: the sets are not table-tagged")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mb = B._marshal_batch(v.sets, "cuda", seed=31)
+    torch.cuda.synchronize()
+    marshal_ms = (time.perf_counter() - t0) * 1e3
+    packed = B._marshal_batch(untagged(C, v.sets), "cuda", seed=31)
+    need(torch.equal(mb.pk, packed.pk),
+         "block: gathered pk differs from the host-packed pk")
+    aggregated = mb.grid_idx is not None
+    n_b, k_b, m_b = mb.pk.shape[0], mb.pk.shape[1], mb.u.shape[0]
+    pairs = (m_b if aggregated else n_b) + 1
+
+    t0 = time.perf_counter()
+    need(v.verify(slot=BLOCK_SLOT) is True, "block: honest block rejected (first)")
+    first_s = time.perf_counter() - t0
+    K.reset_launches()
+    t0 = time.perf_counter()
+    ok = v.verify(slot=BLOCK_SLOT)
+    verify_ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(K.LAUNCHES)
+    need(ok is True, "block: honest block rejected")
+    check_launches("block", counts, expected_launches(TP, pairs))
+    add_launches(launches, counts)
+    t0 = time.perf_counter()
+    need(fv.verify(slot=BLOCK_SLOT) is False, "block: forged block accepted")
+    forged_ms = (time.perf_counter() - t0) * 1e3
+    cpu_honest, cpu_forged = oracle()
+    cpu_s = time.perf_counter() - t_oracle
+    need(cpu_honest is True and cpu_forged is False,
+         f"block: cpu oracle {cpu_honest} / {cpu_forged}, card True / False")
+    log(f"block: {sets} sets, {keys} keys gathered by index from the "
+        f"{len(cache)}-row table (pk equal to the host-packed route), bucket "
+        f"n_b {n_b} k_b {k_b} m_b {m_b}, {'aggregated' if aggregated else 'per-set'} "
+        f"path, {pairs} pairs; host: sign {sign_s:.1f} s, build sets "
+        f"{build_ms:.1f} ms, marshal {marshal_ms:.1f} ms; card: first verify "
+        f"{first_s:.3f} s, replayed {verify_ms:.1f} ms (honest True), forged "
+        f"{forged_ms:.1f} ms (False); cpu oracle True / False, both verdicts "
+        f"{cpu_s:.1f} s from their start, beside the card's work; launches "
+        f"{counts}; card: {card}")
+    return dict(sets=sets, keys=keys, bucket=[n_b, k_b, m_b], aggregated=aggregated,
+                pairs=pairs, sign_s=sign_s, build_sets_ms=build_ms,
+                marshal_ms=marshal_ms, first_s=first_s, verify_ms=verify_ms,
+                forged_ms=forged_ms, cpu_oracle_s=cpu_s, launches=counts)
+
+
+def phase_attestations(torch, K, B, C, reg, launches, card):
+    """Gossip batches through the beacon processor: honest, then with 1 and
+    3 planted forgeries in each batch, against the sync batch_verify_*."""
+    state, preset, spec, cache, host = reg.state, reg.preset, reg.spec, reg.cache, reg.host
+    M = C.metrics
+    C.tracing.configure(clock=_WallClock())
+    chain = gossip_chain(C, state, preset, spec, cache, BLOCK_SLOT)
+    t0 = time.perf_counter()
+    unagg = {(): gossip_unaggregated(C, state, preset, spec, reg.secret_of,
+                                     BLOCK_SLOT - 1, GOSSIP_UNAGGREGATED, host)}
+    aggs = {(): gossip_aggregates(C, state, preset, spec, reg.secret_of,
+                                  GOSSIP_AGGREGATES, host)}
+    for family, forged in ((unagg, FORGED_UNAGGREGATED), (aggs, FORGED_AGGREGATES)):
+        for bad in forged:
+            family[bad] = forge_gossip(C, state, preset, spec, reg.secret_of,
+                                       family[()], bad, host)
+    sign_s = time.perf_counter() - t0
+    out = dict(sign_s=sign_s)
+
+    graphs0 = graph_count(B)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res, bp = process_gossip(C, chain, unagg[()], aggs[()])
+    honest_s = time.perf_counter() - t0
+    counts = dict(K.LAUNCHES)
+    check_launches("attestations", counts, {})
+    add_launches(launches, counts)
+    spans = span_ms(C, "att_setup", "att_verify_wait", "agg_setup", "agg_verify_wait")
+    for name, items in (("unaggregated", unagg[()]), ("aggregate", aggs[()])):
+        got, rejected = verdicts(items, res[name])
+        need(len(got) == len(items) and not rejected,
+             f"attestations: {name}: {len(got)} of {len(items)} verified, "
+             f"rejected {sorted(rejected.values())}")
+    sync = {
+        "unaggregated": verdicts(unagg[()], C.att.batch_verify_unaggregated(
+            chain, unagg[()], C.observed.ObservedAttesters())),
+        "aggregate": verdicts(aggs[()], C.att.batch_verify_aggregates(
+            chain, aggs[()], C.observed.ObservedAggregates(),
+            C.observed.ObservedAggregators())),
+    }
+    for name, items in (("unaggregated", unagg[()]), ("aggregate", aggs[()])):
+        need(verdicts(items, res[name]) == sync[name],
+             f"attestations: {name}: processor and sync verdicts differ")
+    log(f"attestations: honest {len(unagg[()])} unaggregated + {len(aggs[()])} "
+        f"aggregates ({3 * len(aggs[()])} sets) through the BeaconProcessor, "
+        f"all verified, equal to the sync batch_verify_*; {honest_s:.3f} s, "
+        f"{graph_count(B) - graphs0} stage graphs captured; host sign "
+        f"{sign_s:.1f} s; span ms "
+        f"{json.dumps({k: round(v, 3) for k, v in spans.items()})}; "
+        f"launches {counts}; card: {card}")
+    out["honest"] = dict(seconds=honest_s, spans=spans,
+                         graphs_captured=graph_count(B) - graphs0,
+                         processed=dict(bp.processed), launches=counts)
+    for name, family, kind in (("unaggregated", unagg, "att"),
+                               ("aggregate", aggs, "agg")):
+        for bad in [b for b in family if b]:
+            items = family[bad]
+            C.tracing.default_tracer().reset()
+            calls0 = M.BLS_BISECTION_CALLS.value
+            graphs0 = graph_count(B)
+            t0 = time.perf_counter()
+            res, _ = process_gossip(
+                C, chain, **{"unaggregated" if kind == "att" else "aggregates": items})
+            secs = time.perf_counter() - t0
+            calls = int(M.BLS_BISECTION_CALLS.value - calls0)
+            got, rejected = verdicts(items, res[name])
+            want_bad = {items[i].tree_hash_root() for i in bad}
+            need(rejected == {r: "invalid signature" for r in want_bad},
+                 f"attestations: {name} {bad}: rejected {rejected}")
+            need(len(got) == len(items) - len(bad) and not (got & want_bad),
+                 f"attestations: {name} {bad}: {len(got)} verified")
+            limit = bisection_bound(len(bad), len(items))
+            need(calls <= limit, f"attestations: {name} {bad}: {calls} bisection "
+                 f"calls, bound {limit}")
+            spans = span_ms(C, f"{kind}_setup", f"{kind}_verify_wait", f"{kind}_bisect")
+            log(f"attestations: {name} with forgeries at {list(bad)}: exactly those "
+                f"rejected (invalid signature), {len(got)} verified; {calls} "
+                f"bisection calls (bound {limit}); {secs:.3f} s, "
+                f"{graph_count(B) - graphs0} stage graphs captured; span ms "
+                f"{json.dumps({k: round(v, 3) for k, v in spans.items()})}; card: {card}")
+            out[f"{name}-{len(bad)}"] = dict(
+                seconds=secs, bisection_calls=calls, bound=limit, spans=spans,
+                graphs_captured=graph_count(B) - graphs0)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -1799,6 +2475,17 @@ def main(argv=None) -> int:
     if "adversary" in phases:
         api.set_backend("torch_cuda")
         paths["adversary"] = phase_adversary(torch, K, TP, B, api, launches, card)
+    if "block" in phases or "attestations" in phases:
+        api.set_backend("torch_cuda")
+        C = consensus_modules()
+        with host_pool() as pool:
+            reg = registry(torch, C, HostCrypto(pool), card)
+            paths["registry"] = reg.summary
+            if "block" in phases:
+                paths["block"] = phase_block(torch, K, TP, B, C, reg, launches, card)
+            if "attestations" in phases:
+                paths["attestations"] = phase_attestations(
+                    torch, K, B, C, reg, launches, card)
 
     if results:
         line = []

@@ -3,12 +3,15 @@ types of lighthouse_tpu/utils/metrics.py (`Counter`, `Gauge`, `Histogram`,
 `LabeledGauge`, `Registry`, `slot_delay_seconds`, `observe_slot_delay`)
 and of the metric families that the verification seam feeds: backend
 degradation, the pipeline, message aggregation, the scheduler, and the
-device telemetry of backends/torch_cuda.py.
+device telemetry of backends/torch_cuda.py; and the families that the
+gossip attestation batches (chain/attestation_verification.py, with its
+bisection) and the beacon processor feed.
 
 Exported names, types and help texts are the JAX package's, so the two
-registries compare line by line. The chain, network and speculation
-families wait for the modules that feed them; of the last, only the
-committee table's size gauge is here, which torch_cuda feeds."""
+registries compare line by line. The rest of the chain family, the
+network family and the speculation family wait for the modules that feed
+them; of the last, only the committee table's size gauge is here, which
+torch_cuda feeds."""
 
 from __future__ import annotations
 
@@ -289,6 +292,32 @@ BLS_GATHER_MISSES = REGISTRY.counter(
     "Batches that fell back to per-key host limb packing",
 )
 
+# -- the gossip attestation batch family (chain/attestation_verification.py,
+# the beacon_chain metric family of metrics.rs:37-80) ----------------------
+
+ATTN_BATCH_SETUP_TIMES = REGISTRY.histogram(
+    "beacon_attestation_batch_setup_seconds",
+    "Gossip attestation batch: checks + set building",
+)
+ATTN_BATCH_VERIFY_TIMES = REGISTRY.histogram(
+    "beacon_attestation_batch_verify_seconds",
+    "Gossip attestation batch: worker-visible wait for the signature "
+    "verdict (+bisection); under the async pipeline device compute "
+    "overlaps the next batch's marshalling, so this is residual wait, "
+    "not raw device time",
+)
+ATTESTATIONS_PROCESSED = REGISTRY.counter(
+    "beacon_attestations_processed_total", "Gossip attestations verified"
+)
+BLS_BISECTION_CALLS = REGISTRY.counter(
+    "bls_bisection_backend_calls_total",
+    "Extra backend calls spent isolating invalid sets by bisection",
+)
+BLS_BISECTION_BAD_ITEMS = REGISTRY.counter(
+    "bls_bisection_bad_items_total",
+    "Invalid items isolated (and attributed) by the bisection fallback",
+)
+
 # -- the message-aggregation family (backends/torch_cuda.py dispatch, the
 # weight draws of torch_cuda and cpu) --------------------------------------
 
@@ -457,3 +486,15 @@ SCHEDULER_VERDICT_DELAY = {
     "sync": BLS_SCHED_VERDICT_DELAY_SYNC,
     "speculative": BLS_SCHED_VERDICT_DELAY_SPECULATIVE,
 }
+
+# -- beacon-processor scheduling family (processor/beacon_processor.py) ------
+
+PROCESSOR_PENDING = REGISTRY.gauge(
+    "beacon_processor_work_pending",
+    "Work items queued across all processor lanes, not yet claimed",
+)
+PROCESSOR_QUEUE_WAIT = REGISTRY.histogram(
+    "beacon_processor_queue_wait_seconds",
+    "Enqueue-to-claim wait of the oldest item in each claimed batch "
+    "(tracer clock)",
+)

@@ -1,7 +1,10 @@
 """chip_smoke.py's host-side helpers on the CPU: the kernel metadata it
 reports, the profiler keys it reads each kernel's device time from, the
-launch counts it holds every verify to, and its summary of nvcc's ptxas
-report. (The script itself needs a card: `python3 chip_smoke.py`.)"""
+launch counts it holds every verify to, its summary of nvcc's ptxas
+report, and the host side of the block and attestations phases at
+MINIMAL (the tiled registry, the block's set and key counts, the gossip
+batches through the processor, the bisection bound). (The script itself
+needs a card: `python3 chip_smoke.py`.)"""
 
 import importlib.util
 import re
@@ -176,7 +179,8 @@ def test_pipeline_phase_runs_last_on_warmed_buckets():
     at = CS.ALL_PHASES.index("pipeline")
     assert set(CS.ALL_PHASES[:at]) >= {"gossip", "aggregate", "warm", "table"}
     # after it only the phases that reuse none of its state
-    assert CS.ALL_PHASES[at + 1:] == ("monolith", "windowed", "correct", "adversary")
+    assert CS.ALL_PHASES[at + 1:] == ("monolith", "windowed", "correct", "adversary",
+                                      "block", "attestations")
     warm = set(B.DEFAULT_WARM_BUCKETS)
     assert [b for b in CS.PIPELINE_BUCKETS if b not in warm] == [(1024, 4, 32)]
     assert (16, 4, 16) in warm and S.warm_capacity(64) == 64
@@ -384,3 +388,187 @@ def test_windowed_phase_runs_a_child_with_the_switch(monkeypatch, rc, fails):
     assert seen["pallas"] == "1" and seen["cmd"][-2:] == ["--phases", "build,windowed-child"]
     assert launches == {"fp_mul": 7, "fp_sq": 8} and out["gossip"] == child["gossip"]
     assert "windowed-child" in CS.CHILD_PHASES and "windowed-child" not in CS.ALL_PHASES
+
+
+# --- the block and attestations phases' host side, at MINIMAL ------------------
+
+
+def test_block_and_attestations_phases_run_last():
+    assert CS.ALL_PHASES[-2:] == ("block", "attestations")
+    assert "block " in CS.__doc__ and "attestations " in CS.__doc__
+    assert CS.BLOCK_VALIDATORS // 32 // 128 == 4 and CS.BLOCK_DISTINCT_KEYS >= 1024
+    assert (CS.GOSSIP_UNAGGREGATED, CS.GOSSIP_AGGREGATES) == (64, 32)
+    assert [len(b) for b in CS.FORGED_UNAGGREGATED] == [1, 3]
+    assert [len(b) for b in CS.FORGED_AGGREGATES] == [1, 3]
+
+
+@pytest.mark.parametrize("k, n, bound", [
+    (1, 64, 7), (3, 64, 21), (1, 32, 6), (3, 32, 18), (1, 1024, 11), (2, 7, 8),
+    (1, 1, 0)])
+def test_bisection_bound_is_k_log_n(k, n, bound):
+    """k (ceil(log2 n) + 1): tests/test_bls_pipeline.py's
+    test_k_bad_costs_k_log_n and its 11 calls for one bad item in 1024."""
+    assert CS.bisection_bound(k, n) == bound
+
+
+@pytest.fixture(scope="module")
+def minimal_chain():
+    """A MINIMAL altair registry of 64 validators tiled from 16 interop
+    keys at slot 7, its pubkey cache on the CPU, and the block the phase
+    builds over it."""
+    torch = pytest.importorskip("torch")
+    torch.set_num_threads(1)
+    C = CS.consensus_modules()
+    T = C.types
+    preset, spec = T.MINIMAL, T.ChainSpec.interop(altair_fork_epoch=0)
+    state, secret_of = CS.registry_state(C, preset, spec, 64, 16, CS.HostCrypto())
+    state = C.per_slot.process_slots(state, 7, preset, spec)
+    cache = C.pubkey_cache.ValidatorPubkeyCache(state, device="cpu")
+    block = CS.build_block(C, state, preset, spec, secret_of, CS.HostCrypto())
+    return C, state, preset, spec, secret_of, cache, block
+
+
+def test_registry_is_tiled_interop_genesis(minimal_chain):
+    C, state, preset, spec, secret_of, cache, _ = minimal_chain
+    T = C.types
+    assert state.fork_name == "altair" and len(state.validators) == 64
+    for i in (0, 15, 16, 63):
+        sk, pk = T.interop_keypair(i % 16)
+        assert bytes(state.validators[i].pubkey) == pk.to_bytes()
+        assert secret_of(i) == sk.scalar
+    assert state.eth1_deposit_index == 64
+    assert len(cache) == 64 and cache.getter(state)(17).validator_index == 17
+
+
+def test_block_builder_set_and_key_counts(minimal_chain):
+    """At slot 7 of MINIMAL (2 committees of 4 a slot): 14 full-committee
+    attestations of slots 0-6, one more of each slot-6 committee without
+    one member, a full sync aggregate (32 keys), randao and proposal: 19
+    sets, 96 keys, every key table-tagged; a forged attestation changes
+    one signature only."""
+    C, state, preset, spec, secret_of, cache, block = minimal_chain
+    from lighthouse_tpu_torch.crypto.bls.backends import torch_cuda as B
+
+    atts = block.message.body.attestations
+    assert len(atts) == 16
+    assert [sum(a.aggregation_bits) for a in atts] == [4] * 14 + [3, 3]
+    assert all(a.data.slot == 6 for a in atts[-4:])
+    v = C.bsv.BlockSignatureVerifier(state, preset, spec, get_pubkey=cache.getter(state),
+                                     resolve_pubkey=cache.resolve)
+    v.include_all_signatures(block)
+    assert len(v.sets) == 19 and CS.block_key_count(v.sets) == 96
+    assert B._common_table(v.sets) is cache
+    forged = CS.forge_attestation(C, state, preset, spec, secret_of, block, 7,
+                                    CS.HostCrypto())
+    diff = [i for i, (a, b) in enumerate(zip(atts, forged.message.body.attestations))
+            if a.as_ssz_bytes() != b.as_ssz_bytes()]
+    assert diff == [7]
+
+
+def test_block_verdicts_on_the_cpu_oracle(minimal_chain):
+    C, state, preset, spec, secret_of, cache, block = minimal_chain
+    from lighthouse_tpu_torch.crypto.bls.backends import cpu as CPU
+
+    for signed, want in ((block, True),
+                         (CS.forge_attestation(C, state, preset, spec, secret_of,
+                                               block, 7, CS.HostCrypto()), False)):
+        v = C.bsv.BlockSignatureVerifier(state, preset, spec,
+                                         get_pubkey=cache.getter(state),
+                                         resolve_pubkey=cache.resolve)
+        v.include_all_signatures(signed)
+        assert CPU.verify_signature_sets(v.sets, seed=31) is want
+
+
+def test_gossip_through_the_processor_isolates_forgeries(minimal_chain):
+    """The attestations phase's wiring on the cpu backend: the handlers'
+    PendingBatches resolve through the processor; with a forged item in
+    each batch, that item alone is rejected, within the bisection bound,
+    and every other item verified."""
+    C, state, preset, spec, secret_of, cache, _ = minimal_chain
+    host = CS.HostCrypto()
+    saved = (C.api._BACKEND, C.api._BACKEND_NAME, C.api._DEVICE)
+    C.api.set_backend("cpu")
+    try:
+        chain = CS.gossip_chain(C, state, preset, spec, cache, 7)
+        un = CS.gossip_unaggregated(C, state, preset, spec, secret_of, 6, 4, host)
+        ag = CS.gossip_aggregates(C, state, preset, spec, secret_of, 2, host)
+        bad_un = CS.forge_gossip(C, state, preset, spec, secret_of, un, (1,), host)
+        bad_ag = CS.forge_gossip(C, state, preset, spec, secret_of, ag, (0,), host)
+        calls0 = C.metrics.BLS_BISECTION_CALLS.value
+        res, bp = CS.process_gossip(C, chain, bad_un, bad_ag)
+        assert bp.processed["gossip_attestation"] == 4
+        assert bp.processed["gossip_aggregate"] == 2
+        assert C.metrics.BLS_BISECTION_CALLS.value - calls0 <= (
+            CS.bisection_bound(1, 4) + CS.bisection_bound(1, 2))
+        got, rejected = CS.verdicts(bad_un, res["unaggregated"])
+        assert rejected == {bad_un[1].tree_hash_root(): "invalid signature"}
+        assert got == {a.tree_hash_root() for i, a in enumerate(un) if i != 1}
+        got, rejected = CS.verdicts(bad_ag, res["aggregate"])
+        assert rejected == {bad_ag[0].tree_hash_root(): "invalid signature"}
+        assert got == {ag[1].tree_hash_root()}
+    finally:
+        C.api._BACKEND, C.api._BACKEND_NAME, C.api._DEVICE = saved
+
+
+# --- the same on the card (`gpu`) ------------------------------------------------
+
+
+def _card():
+    torch = pytest.importorskip("torch")
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; on the card: python3 chip_smoke.py "
+                    "--phases build,block,attestations")
+    return torch
+
+
+@pytest.fixture
+def card_chain(minimal_chain):
+    """minimal_chain with its pubkey cache's table on the card and the
+    torch_cuda backend selected (restored after)."""
+    torch = _card()
+    C, state, preset, spec, secret_of, _, block = minimal_chain
+    saved = (C.api._BACKEND, C.api._BACKEND_NAME, C.api._DEVICE)
+    C.api.set_backend("torch_cuda")
+    cache = C.pubkey_cache.ValidatorPubkeyCache(state)
+    assert cache.device_table().device.type == "cuda"
+    yield torch, C, state, preset, spec, secret_of, cache, block
+    C.api._BACKEND, C.api._BACKEND_NAME, C.api._DEVICE = saved
+
+
+@pytest.mark.gpu
+def test_block_verdicts_on_the_card_equal_the_cpu_oracle(card_chain):
+    """Honest True and forged False on the card through the chain's
+    wiring, as the cpu oracle says; the table-gathered pk equals the
+    host-packed one."""
+    torch, C, state, preset, spec, secret_of, cache, block = card_chain
+    from lighthouse_tpu_torch.crypto.bls.backends import cpu as CPU
+    from lighthouse_tpu_torch.crypto.bls.backends import torch_cuda as B
+
+    forged = CS.forge_attestation(C, state, preset, spec, secret_of, block, 7,
+                                    CS.HostCrypto())
+    for signed, want in ((block, True), (forged, False)):
+        v = C.bsv.BlockSignatureVerifier(state, preset, spec,
+                                         get_pubkey=cache.getter(state),
+                                         resolve_pubkey=cache.resolve)
+        v.include_all_signatures(signed)
+        assert B._common_table(v.sets) is cache
+        assert v.verify(slot=7) is want
+        assert CPU.verify_signature_sets(v.sets, seed=31) is want
+        gathered = B._marshal_batch(v.sets, "cuda", seed=3).pk
+        packed = B._marshal_batch(CS.untagged(C, v.sets), "cuda", seed=3).pk
+        assert gathered.device.type == "cuda" and torch.equal(gathered, packed)
+
+
+@pytest.mark.gpu
+def test_forged_gossip_item_isolated_on_the_card(card_chain):
+    torch, C, state, preset, spec, secret_of, cache, _ = card_chain
+    host = CS.HostCrypto()
+    chain = CS.gossip_chain(C, state, preset, spec, cache, 7)
+    un = CS.gossip_unaggregated(C, state, preset, spec, secret_of, 6, 8, host)
+    bad = CS.forge_gossip(C, state, preset, spec, secret_of, un, (5,), host)
+    calls0 = C.metrics.BLS_BISECTION_CALLS.value
+    res, _ = CS.process_gossip(C, chain, bad)
+    assert C.metrics.BLS_BISECTION_CALLS.value - calls0 <= CS.bisection_bound(1, 8)
+    got, rejected = CS.verdicts(bad, res["unaggregated"])
+    assert rejected == {bad[5].tree_hash_root(): "invalid signature"}
+    assert got == {a.tree_hash_root() for i, a in enumerate(un) if i != 5}

@@ -1,10 +1,14 @@
-"""The name diff between the JAX package's device modules and the port's:
-every public function, class or constant defined at the top level of
+"""The name diff between the JAX package's modules and the port's: every
+public function, class or constant defined at the top level of
 lighthouse_tpu/crypto/bls/tpu/{limbs,tower,curve,pairing,hash_to_curve}.py
 and backends/jax_tpu.py has a same-named counterpart in the port's
-gpu/ modules and backends/torch_cuda.py, or stands on the list below with
-its reason, and ROADMAP.md names it. The JAX files are parsed, not
-imported: nothing compiles."""
+gpu/ modules and backends/torch_cuda.py, and so has every one of the
+consensus modules the port copies (ssz/, types/, utils/shuffle.py, the
+ported state_transition/, chain/, pool/ and processor/ modules); every
+name a package `__init__.py` of those exports is exported by the port's,
+or stands on the list below with the ROADMAP item that brings it, and
+ROADMAP.md names it. The JAX files are parsed, not imported: nothing
+compiles."""
 
 import ast
 import importlib
@@ -32,6 +36,40 @@ EXPLAINED = {
         "verify_grouped_jit": "mesh (ROADMAP Queue 1 item 12)",
     },
 }
+
+
+# lighthouse_tpu/<file> -> lighthouse_tpu_torch.<module>: the copies
+CONSUMERS = {
+    f: "lighthouse_tpu_torch." + f[:-3].replace("/", ".")
+    for f in (
+        "utils/shuffle.py", "ssz/hash.py", "ssz/types.py", "ssz/cached.py",
+        "types/presets.py", "types/chain_spec.py", "types/containers.py",
+        "types/helpers.py", "types/committee_cache.py", "types/sync_committee.py",
+        "types/interop.py", "state_transition/context.py",
+        "state_transition/per_slot.py", "state_transition/signature_sets.py",
+        "state_transition/block_signature_verifier.py", "chain/pubkey_cache.py",
+        "chain/attestation_verification.py", "pool/observed.py",
+        "processor/beacon_processor.py",
+    )
+}
+
+# names a JAX package __init__ exports that the port's does not yet, and
+# the ROADMAP item that brings each
+_ST = "state_transition/ (ROADMAP Queue 1 item 14.2)"
+WAITING = {
+    "state_transition/__init__.py": dict.fromkeys((
+        "BlockSignatureStrategy", "per_block_processing", "process_attestation",
+        "process_deposit", "process_epoch", "initialize_beacon_state_from_eth1",
+        "is_valid_genesis_state", "try_genesis_from_eth1", "BlockReplayer",
+        "upgrade_to_altair"), _ST),
+    "chain/__init__.py": dict.fromkeys(
+        ("BeaconChain", "BlockError"), "chain/ (ROADMAP Queue 1 item 14.3)"),
+    "pool/__init__.py": dict.fromkeys(
+        ("max_cover", "NaiveAggregationPool", "OperationPool"),
+        "pool/ (ROADMAP Queue 1 item 14.6)"),
+}
+INITS = ("ssz/__init__.py", "types/__init__.py", "state_transition/__init__.py",
+         "chain/__init__.py", "pool/__init__.py", "processor/__init__.py")
 
 
 def _public_names(path: Path) -> set:
@@ -62,9 +100,37 @@ def test_every_public_jax_name_has_a_port_counterpart(jax_file):
     assert len(jnames) >= 3
 
 
+@pytest.mark.parametrize("jax_file", sorted(CONSUMERS))
+def test_every_public_name_of_a_copied_module_has_a_port_counterpart(jax_file):
+    jnames = _public_names(ROOT / "lighthouse_tpu" / jax_file)
+    port = importlib.import_module(CONSUMERS[jax_file])
+    assert not sorted(n for n in jnames if not hasattr(port, n)), jax_file
+    assert jnames
+
+
+def _exported(path: Path) -> set:
+    """The names a package __init__ imports from its modules."""
+    return {a.asname or a.name for node in ast.parse(path.read_text()).body
+            if isinstance(node, ast.ImportFrom) for a in node.names}
+
+
+@pytest.mark.parametrize("init", INITS)
+def test_port_package_exports_what_is_ported(init):
+    """Each port __init__ exports the JAX one's names but those waiting
+    for their ROADMAP item, and every waiting name is really missing."""
+    want, got = _exported(ROOT / "lighthouse_tpu" / init), _exported(
+        ROOT / "lighthouse_tpu_torch" / init)
+    waiting = WAITING.get(init, {})
+    assert got == want - set(waiting)
+    assert set(waiting) <= want
+    port = importlib.import_module("lighthouse_tpu_torch." + init[:-len("/__init__.py")])
+    assert all(hasattr(port, n) for n in got)
+    assert not [n for n in waiting if hasattr(port, n)]
+
+
 def test_explained_names_stand_in_the_roadmap():
     roadmap = (ROOT / "ROADMAP.md").read_text()
-    for names in EXPLAINED.values():
+    for names in list(EXPLAINED.values()) + list(WAITING.values()):
         for name in names:
             assert f"`{name}`" in roadmap, name
     assert "_monolith_graphs" in roadmap

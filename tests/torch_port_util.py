@@ -124,3 +124,72 @@ def need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; run python3 chip_smoke.py on the card")
     return torch.device("cuda")
+
+
+# --- consensus objects across the packages ------------------------------------
+
+
+def port_preset(jax_preset):
+    """The port's preset of the same name as a JAX one."""
+    from lighthouse_tpu_torch.types import presets
+
+    return getattr(presets, jax_preset.name.upper())
+
+
+def carry_state(jax_state, jax_preset):
+    """A JAX BeaconState as the port's: the JAX side encodes it, the port
+    decodes the SSZ bytes (any fork)."""
+    from lighthouse_tpu_torch.types import decode_state_any_fork
+
+    return decode_state_any_fork(jax_state.as_ssz_bytes(), port_preset(jax_preset))
+
+
+def carry_block(jax_signed_block, jax_preset):
+    """A JAX SignedBeaconBlock as the port's, through its SSZ bytes."""
+    from lighthouse_tpu_torch.types import decode_block_any_fork
+
+    return decode_block_any_fork(
+        jax_signed_block.as_ssz_bytes(), port_preset(jax_preset))
+
+
+def carry(jax_obj, port_cls):
+    """Any JAX SSZ container as an instance of `port_cls`, through its
+    SSZ bytes."""
+    return port_cls.from_ssz_bytes(jax_obj.as_ssz_bytes())
+
+
+def jax_keys_from_port(monkeypatch):
+    """Let the JAX package's interop genesis (and its sync committees and
+    signature-set builders) take the public keys from the port's bytes,
+    decompressed without the subgroup check (the JAX host
+    oracle spends ~0.18 s a key on the scalar multiplication and as much
+    on the check; the port ~1 ms and ~19 ms). Secret keys stay the JAX
+    package's own, so its signatures are its own. The keys themselves
+    are held across the packages by test_torch_types.py's keypair tests
+    (every secret key, the first public keys)."""
+    import functools
+
+    from lighthouse_tpu.crypto.bls import api as japi
+    from lighthouse_tpu.crypto.bls import curve_ref as JC
+    from lighthouse_tpu.state_transition import signature_sets as JSS
+    from lighthouse_tpu.types import interop as JI
+    from lighthouse_tpu.types import sync_committee as JS
+    from lighthouse_tpu_torch.types import interop as TI
+
+    @functools.lru_cache(maxsize=None)
+    def keypair(index):
+        pk = TI.interop_keypair(index)[1].to_bytes()
+        return JI.interop_secret_key(index), japi.PublicKey(
+            JC.g1_from_bytes(pk), pk, subgroup_checked=True)
+
+    class _Decompressed:
+        @staticmethod
+        def from_bytes(data):
+            return japi.PublicKey(
+                JC.g1_from_bytes(bytes(data)), bytes(data), subgroup_checked=True)
+
+    monkeypatch.setattr(JI, "interop_keypair", keypair)
+    monkeypatch.setattr(JS, "PublicKey", _Decompressed)
+    # the signature-set builders' registry getter decompresses the same keys
+    monkeypatch.setattr(JSS, "_decompress", _Decompressed.from_bytes)
+    return keypair
