@@ -140,6 +140,31 @@ Phases (each one fails the run with a nonzero exit):
              signature"), every other item verified, the bisection within
              k (ceil(log2 n) + 1) extra backend calls; att_setup,
              verify-wait and bisection ms from the port's spans
+  chain      block import through the port's BeaconChain (over a HotColdDB
+             of a MemoryStore, on the registry's genesis; its pubkey cache
+             is the one the block and attestations phases use), every
+             verify on torch_cuda: the block phase's block at slot 31,
+             now with its state root, through process_gossip_block (one
+             backend call for the proposal, one for the other 130 sets;
+             the head moves to it); a block at slot 32 through
+             chain.process_block (VERIFY_BULK, 131 sets; process_slots runs
+             process_epoch over the 16,384 validators on the way); a
+             segment of 4 parent-linked blocks (33-36, each built on the
+             post-state of the one before) through
+             signature_verify_chain_segment, ONE backend call of 524 sets,
+             then import_into; then, with the head unchanged after each,
+             the same segment with attestation 5 of its third block forged
+             (BlockError) and a block at 37 with a forged proposal
+             signature ("invalid proposer signature"). Every call's
+             verdict equals the cpu oracle's on the host pool; the head,
+             its state root and the justified and finalized checkpoints
+             equal a twin chain's that imported the same blocks with
+             NO_VERIFICATION; each step launched the kernels as
+             `expected_launches` implies for its calls' pairs. Printed: the
+             span ms of each step (gossip verify, signature verify,
+             transition, state root, store, fork choice), process_epoch ms
+             at the boundary, the segment's bucket, pairs, first-call s,
+             replayed ms and host ms to build its sets, the phase's wall
 
 The entry points run each stage as a CUDA graph: in every path the first
 verify of a batch captures its stages and the verifies after it replay
@@ -176,7 +201,7 @@ import time
 ALL_PHASES = (
     "build", "kernels", "parity", "gossip", "aggregate", "warm", "table",
     "aggverify", "graphs", "pipeline", "monolith", "windowed", "correct",
-    "adversary", "block", "attestations",
+    "adversary", "block", "attestations", "chain",
 )
 # run only as the windowed phase's child process
 CHILD_PHASES = ("windowed-child",)
@@ -1742,7 +1767,7 @@ FORGED_AGGREGATES = ((11,), (3, 19, 28))
 
 
 def consensus_modules():
-    """The port's consensus modules that the block and attestations
+    """The port's consensus modules that the block, attestations and chain
     phases drive, as one namespace."""
     import importlib
     from types import SimpleNamespace
@@ -1755,6 +1780,9 @@ def consensus_modules():
         observed="pool.observed", processor="processor", api="crypto.bls.api",
         curve="crypto.bls.curve_ref", fields="crypto.bls.fields_ref",
         metrics="utils.metrics", tracing="utils.tracing",
+        per_block="state_transition.per_block", per_epoch="state_transition.per_epoch",
+        beacon_chain="chain.beacon_chain", bv="chain.block_verification",
+        hot_cold="store.hot_cold", kv="store.kv",
     )
     return SimpleNamespace(**{
         k: importlib.import_module("lighthouse_tpu_torch." + v)
@@ -1905,13 +1933,19 @@ def wrong_root(root):
     return bytes(b ^ 0xFF for b in root)
 
 
-def build_block(C, state, preset, spec, secret_of, host):
-    """One SignedBeaconBlockAltair at `state.slot` (slot processing done):
-    an attestation of every committee of the slots it may include (the
-    inclusion window, at most MAX_ATTESTATIONS), all bits set; one more
-    aggregate of each committee of the last slot over another bit subset
-    (its member k dropped), as blocks do carry, while room is left; a
-    full sync aggregate; the randao reveal and the proposal signature."""
+def produce_block(C, state, preset, spec, secret_of, host, forge=None, attest=True,
+                  forge_proposal=False):
+    """One SignedBeaconBlockAltair at `state.slot` (slot processing done)
+    and its post-state: an attestation of every committee of the slots it
+    may include (the inclusion window, at most MAX_ATTESTATIONS), all bits
+    set; one more aggregate of each committee of the last slot over
+    another bit subset (its member k dropped), as blocks do carry, while
+    room is left; a full sync aggregate; the randao reveal; the state
+    root, from the block applied to a copy of `state` without signature
+    checks, as a proposer computes it; and the proposal signature.
+    `forge` = k signs attestation k over a wrong root, `attest=False`
+    leaves the attestations out, and `forge_proposal` signs the proposal
+    over a wrong root."""
     T = C.types
     t = T.types_for(preset)
     slot, spe = state.slot, preset.slots_per_epoch
@@ -1919,23 +1953,24 @@ def build_block(C, state, preset, spec, secret_of, host):
     ctxt = C.context.ConsensusContext(preset, spec)
     atts, jobs = [], []
 
-    def attest(s, index, committee, bits):
+    def attest_(s, index, committee, bits):
         data = attestation_data(C, state, s, index, preset)
         atts.append(t.Attestation(aggregation_bits=bits, data=data))
+        root = attester_root(C, state, data, preset)
         jobs.append(([secret_of(v) for v, b in zip(committee, bits) if b],
-                     attester_root(C, state, data, preset)))
+                     wrong_root(root) if len(jobs) == forge else root))
 
-    for s in range(max(0, slot - spe), slot):
+    for s in range(max(0, slot - spe), slot) if attest else ():
         cache = ctxt.committee_cache(state, s // spe)
         for index, committee in enumerate(cache.get_all_committees_at_slot(s)):
-            attest(s, index, committee, tuple(True for _ in committee))
+            attest_(s, index, committee, tuple(True for _ in committee))
     last = slot - 1
     cache = ctxt.committee_cache(state, last // spe)
     for index, committee in enumerate(cache.get_all_committees_at_slot(last)):
-        if len(atts) >= preset.max_attestations:
+        if not attest or len(atts) >= preset.max_attestations:
             break
         k = index % len(committee)
-        attest(last, index, committee, tuple(i != k for i in range(len(committee))))
+        attest_(last, index, committee, tuple(i != k for i in range(len(committee))))
     del atts[preset.max_attestations:], jobs[preset.max_attestations:]
 
     first = {}
@@ -1962,10 +1997,17 @@ def build_block(C, state, preset, spec, secret_of, host):
     block = t.BeaconBlockAltair(slot=slot, proposer_index=proposer,
                                 parent_root=parent_root, state_root=bytes(32),
                                 body=body)
+    post = C.per_slot.clone_state(state)
+    C.per_block.per_block_processing(
+        post, t.SignedBeaconBlockAltair(message=block),
+        preset, spec, strategy=C.per_block.BlockSignatureStrategy.NO_VERIFICATION,
+        verified_proposer_index=proposer)
+    block.state_root = C.ssz.cached_root(post)
     domain = T.get_domain(state, T.DOMAIN_BEACON_PROPOSER, epoch, preset)
+    root = T.compute_signing_root(block, domain)
     signature, = host.sign([([secret_of(proposer)],
-                               T.compute_signing_root(block, domain))])
-    return t.SignedBeaconBlockAltair(message=block, signature=signature)
+                               wrong_root(root) if forge_proposal else root)])
+    return t.SignedBeaconBlockAltair(message=block, signature=signature), post
 
 
 def forge_attestation(C, state, preset, spec, secret_of, block, k, host):
@@ -2179,20 +2221,25 @@ def verdicts(items, result):
 
 
 def registry(torch, C, host, card):
-    """The mainnet-shaped registry both phases run over: interop genesis
-    under MAINNET with altair at epoch 0, tiled to BLOCK_VALIDATORS, slot
-    processing to BLOCK_SLOT, and a ValidatorPubkeyCache over it whose
-    device table is on the card. `host` makes the keys and, later, the
+    """The mainnet-shaped registry the block, attestations and chain
+    phases run over: interop genesis under MAINNET with altair at epoch 0,
+    tiled to BLOCK_VALIDATORS; a BeaconChain on it (over a HotColdDB of a
+    MemoryStore), whose ValidatorPubkeyCache, with its device table on the
+    card, the phases share; and a copy of the genesis state with slot
+    processing to BLOCK_SLOT. `host` makes the keys and, later, the
     phases' signatures and oracle verdicts."""
     T = C.types
     preset, spec = T.MAINNET, T.ChainSpec.interop(altair_fork_epoch=0)
     t0 = time.perf_counter()
-    state, secret_of = registry_state(C, preset, spec, BLOCK_VALIDATORS,
-                                      BLOCK_DISTINCT_KEYS, host)
+    genesis, secret_of = registry_state(C, preset, spec, BLOCK_VALIDATORS,
+                                        BLOCK_DISTINCT_KEYS, host)
     t1 = time.perf_counter()
-    state = C.per_slot.process_slots(state, BLOCK_SLOT, preset, spec)
+    state = C.per_slot.process_slots(C.per_slot.clone_state(genesis), BLOCK_SLOT,
+                                     preset, spec)
     t2 = time.perf_counter()
-    cache = C.pubkey_cache.ValidatorPubkeyCache(state)
+    chain = C.beacon_chain.BeaconChain(
+        C.hot_cold.HotColdDB(C.kv.MemoryStore(), preset, spec), genesis, preset, spec)
+    cache = chain.pubkey_cache
     t3 = time.perf_counter()
     table = cache.device_table()
     torch.cuda.synchronize()
@@ -2204,17 +2251,19 @@ def registry(torch, C, host, card):
          len(cpc.get_beacon_committee(0, 0)) == 128,
          f"registry: {cpc.committees_per_slot} committees a slot")
     out = dict(validators=BLOCK_VALIDATORS, distinct_keys=BLOCK_DISTINCT_KEYS,
-               genesis_s=t1 - t0, slots_s=t2 - t1, cache_import_s=t3 - t2,
+               genesis_s=t1 - t0, slots_s=t2 - t1, chain_init_s=t3 - t2,
                table_upload_ms=(t4 - t3) * 1e3)
     log(f"registry: {BLOCK_VALIDATORS} validators tiled from "
         f"{BLOCK_DISTINCT_KEYS} interop keys, {preset.name}, altair: genesis "
         f"{out['genesis_s']:.1f} s, process_slots to {BLOCK_SLOT} "
-        f"{out['slots_s']:.1f} s, pubkey cache {out['cache_import_s']:.1f} s, "
-        f"device table {out['table_upload_ms']:.1f} ms; card: {card}")
+        f"{out['slots_s']:.1f} s, BeaconChain with its pubkey cache "
+        f"{out['chain_init_s']:.1f} s, device table "
+        f"{out['table_upload_ms']:.1f} ms; card: {card}")
     from types import SimpleNamespace
 
-    return SimpleNamespace(state=state, preset=preset, spec=spec, cache=cache,
-                           secret_of=secret_of, host=host, summary=out)
+    return SimpleNamespace(state=state, genesis=genesis, chain=chain, preset=preset,
+                           spec=spec, cache=cache, secret_of=secret_of, host=host,
+                           summary=out, block=None)
 
 
 def phase_block(torch, K, TP, B, C, reg, launches, card):
@@ -2222,7 +2271,8 @@ def phase_block(torch, K, TP, B, C, reg, launches, card):
     the cpu oracle's two verdicts run on the host pool meanwhile."""
     state, preset, spec, cache, host = reg.state, reg.preset, reg.spec, reg.cache, reg.host
     t0 = time.perf_counter()
-    block = build_block(C, state, preset, spec, reg.secret_of, host)
+    reg.block = produce_block(C, state, preset, spec, reg.secret_of, host)
+    block = reg.block[0]
     forged = forge_attestation(C, state, preset, spec, reg.secret_of, block, 7, host)
     sign_s = time.perf_counter() - t0
 
@@ -2374,6 +2424,255 @@ def phase_attestations(torch, K, B, C, reg, launches, card):
     return out
 
 
+CHAIN_SEGMENT = 4  # range sync's segment: blocks BLOCK_SLOT + 2 .. + 5
+CHAIN_FORGED = 2  # the segment's block whose attestation 5 is forged
+CHAIN_SPANS = ("block_gossip_verify", "block_signature_verify", "block_transition",
+               "state_root", "store", "fork_choice", "block_import")
+
+
+@contextlib.contextmanager
+def backend_calls(B, M):
+    """Every batch that reaches torch_cuda's dispatch within the block
+    (the sync and the pipelined verify both end there): its sets, its
+    Miller pairs and its verdict as dispatched (a device bool, or False
+    when a structural check decided it)."""
+    import functools
+
+    calls = []
+    real = B.dispatch_verify_signature_sets
+
+    @functools.wraps(real)
+    def spy(sets, *args, **kwargs):
+        pairs0 = M.BLS_MILLER_PAIRS.value
+        out = real(sets, *args, **kwargs)
+        calls.append(dict(sets=list(sets), pairs=int(M.BLS_MILLER_PAIRS.value - pairs0),
+                          out=out))
+        return out
+
+    B.dispatch_verify_signature_sets = spy
+    try:
+        yield calls
+    finally:
+        B.dispatch_verify_signature_sets = real
+
+
+def oracle_verdict(host, sets, seed):
+    """A callable that returns the cpu oracle backend's verdict on `sets`:
+    the batch split into one part a worker, each part verified on the
+    host pool meanwhile (a batch holds iff every part does)."""
+    parts = max(1, min(len(sets), 8))
+    size = -(-len(sets) // parts)
+    verdicts = host.oracle([sets[i:i + size] for i in range(0, len(sets), size)], seed)
+    return lambda: all(verdicts())
+
+
+def produce_segment(C, state, preset, spec, secret_of, host, n, forge=None):
+    """n parent-linked blocks at the slots after `state`'s, each built on
+    the post-state of the one before (as a proposer would); `forge` = k
+    forges attestation k of the first. Returns (blocks, post-states)."""
+    blocks, posts = [], []
+    for i in range(n):
+        state = C.per_slot.process_slots(C.per_slot.clone_state(state), state.slot + 1,
+                                         preset, spec)
+        signed, state = produce_block(C, state, preset, spec, secret_of, host,
+                                      forge=forge if i == 0 else None)
+        blocks.append(signed)
+        posts.append(state)
+    return blocks, posts
+
+
+def chain_view(C, chain):
+    """What the chain's two twins must agree on: head root, head state
+    root, justified and finalized checkpoints."""
+    return (chain.head_root, C.ssz.cached_root(chain.head_state),
+            chain.justified_checkpoint, chain.finalized_checkpoint)
+
+
+def phase_chain(torch, K, TP, B, C, reg, launches, card):
+    """Block import on the card through the chain's own entry points: a
+    gossip block, an epoch-boundary block and a range-sync segment, then
+    a forged segment and a forged proposal; every backend call against
+    the cpu oracle, the head against a twin chain that imported the same
+    blocks without signature checks."""
+    preset, spec, host, chain = reg.preset, reg.spec, reg.host, reg.chain
+    M, PS = C.metrics, C.per_slot
+    t_phase = time.perf_counter()
+    C.tracing.configure(clock=_WallClock())
+    NOV = C.per_block.BlockSignatureStrategy.NO_VERIFICATION
+
+    t0 = time.perf_counter()
+    b31, post31 = reg.block or produce_block(C, reg.state, preset, spec,
+                                             reg.secret_of, host)
+    (b32,), (post32,) = produce_segment(C, post31, preset, spec, reg.secret_of, host, 1)
+    segment, posts = produce_segment(C, post32, preset, spec, reg.secret_of, host,
+                                     CHAIN_SEGMENT)
+    forged_tail, _ = produce_segment(C, posts[CHAIN_FORGED - 1], preset, spec,
+                                     reg.secret_of, host, CHAIN_SEGMENT - CHAIN_FORGED,
+                                     forge=5)
+    forged_segment = segment[:CHAIN_FORGED] + forged_tail
+    s_bad = PS.process_slots(PS.clone_state(posts[-1]), posts[-1].slot + 1, preset, spec)
+    bad_gossip, _ = produce_block(C, s_bad, preset, spec, reg.secret_of, host,
+                                  attest=False, forge_proposal=True)
+    build_s = time.perf_counter() - t0
+    log(f"chain: built blocks {b31.message.slot}-{segment[-1].message.slot} with their "
+        f"state roots, a forged segment and a forged proposal in {build_s:.1f} s")
+
+    epoch_ms = []
+    process_epoch = C.per_epoch.process_epoch
+
+    def timed_epoch(*args, **kwargs):
+        t = time.perf_counter()
+        process_epoch(*args, **kwargs)
+        epoch_ms.append((time.perf_counter() - t) * 1e3)
+
+    oracles, out, sets_of = [], {}, {}
+
+    def n_sets(*blocks):
+        """A block's sets: its attestations, the sync aggregate, the randao
+        reveal and the proposal (131 at the registry's shape)."""
+        return sum(len(b.message.body.attestations) + 3 for b in blocks)
+
+    def step(label, slot, fn, want_calls, want_error=None, moves_head=True):
+        """fn() with the launch counts at 0 and the tracer reset; checks its
+        backend calls' set counts, the launches their pairs imply and the
+        head (moved to the block it returns, or unchanged)."""
+        chain.slot_clock.set_slot(slot)
+        head0 = chain.head_root
+        C.tracing.default_tracer().reset()
+        sig0 = M.BLOCK_SIGNATURE_TIMES.sum
+        K.reset_launches()
+        t = time.perf_counter()
+        err = None
+        with backend_calls(B, M) as calls:
+            try:
+                result = fn()
+            except C.beacon_chain.BlockError as e:
+                err, result = str(e), None
+        secs = time.perf_counter() - t
+        counts = dict(K.LAUNCHES)
+        need([len(c["sets"]) for c in calls] == want_calls,
+             f"chain: {label}: backend calls of {[len(c['sets']) for c in calls]} "
+             f"sets, want {want_calls}")
+        need(err == want_error, f"chain: {label}: error {err!r}, want {want_error!r}")
+        want = {}
+        for c in calls:
+            add_launches(want, expected_launches(TP, c["pairs"]))
+        check_launches(f"chain {label}", counts, want)
+        add_launches(launches, counts)
+        verdicts = [bool(c["out"]) for c in calls]
+        for c in calls:
+            oracles.append((label, bool(c["out"]), oracle_verdict(host, c["sets"], 37)))
+        sets_of[label] = [c["sets"] for c in calls]
+        if moves_head:
+            need(chain.head_root == result, f"chain: {label}: head did not move")
+        else:
+            need(chain.head_root == head0, f"chain: {label}: head moved")
+        spans = span_ms(C, *CHAIN_SPANS)
+        row = dict(seconds=secs, calls=[len(c["sets"]) for c in calls],
+                   keys=[block_key_count(c["sets"]) for c in calls],
+                   pairs=[c["pairs"] for c in calls], verdicts=verdicts,
+                   signature_ms=(M.BLOCK_SIGNATURE_TIMES.sum - sig0) * 1e3,
+                   spans=spans, launches=counts)
+        log(f"chain: {label}: {secs:.3f} s, backend calls {row['calls']} sets "
+            f"({row['keys']} keys, {row['pairs']} pairs, verdicts {verdicts}); "
+            f"span ms {json.dumps({k: round(v, 1) for k, v in spans.items()})}; "
+            f"launches {counts}; card: {card}")
+        out[label] = row
+        return result
+
+    step("gossip", b31.message.slot, lambda: C.bv.process_gossip_block(chain, b31),
+         [1, n_sets(b31) - 1])
+    C.per_epoch.process_epoch = timed_epoch
+    try:
+        step("boundary", b32.message.slot, lambda: chain.process_block(b32), [n_sets(b32)])
+    finally:
+        C.per_epoch.process_epoch = process_epoch
+    need(len(epoch_ms) == 1, f"chain: {len(epoch_ms)} epoch transitions at the boundary")
+    out["boundary"]["process_epoch_ms"] = epoch_ms[0]
+    log(f"chain: boundary: process_epoch over {len(chain.head_state.validators)} "
+        f"validators {epoch_ms[0]:.1f} ms; card: {card}")
+
+    include = C.bsv.BlockSignatureVerifier.include_all_signatures
+    sets_ms = []
+
+    def timed_include(self, signed):
+        t = time.perf_counter()
+        include(self, signed)
+        sets_ms.append((time.perf_counter() - t) * 1e3)
+
+    last = segment[-1].message.slot
+    C.bsv.BlockSignatureVerifier.include_all_signatures = timed_include
+    try:
+        verified = step("segment", last, lambda: C.bv.signature_verify_chain_segment(
+            chain, segment), [n_sets(*segment)], moves_head=False)
+    finally:
+        C.bsv.BlockSignatureVerifier.include_all_signatures = include
+    C.tracing.default_tracer().reset()
+    t = time.perf_counter()
+    with backend_calls(B, M) as calls:
+        roots = [v.import_into(chain) for v in verified]
+    import_s = time.perf_counter() - t
+    import_spans = span_ms(C, *CHAIN_SPANS)
+    need(not calls and chain.head_root == roots[-1],
+         f"chain: segment import made {len(calls)} backend calls")
+    seg_sets, = sets_of["segment"]
+    mb = B._marshal_batch(seg_sets, "cuda", seed=1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    need(C.api.verify_signature_sets(seg_sets) is True, "chain: segment replay rejected")
+    replay_ms = (time.perf_counter() - t) * 1e3
+    out["segment"].update(
+        bucket=[int(mb.pk.shape[0]), int(mb.pk.shape[1]), int(mb.u.shape[0])],
+        aggregated=mb.grid_idx is not None, first_call_s=out["segment"]["signature_ms"] / 1e3,
+        replayed_ms=replay_ms, build_sets_ms=sum(sets_ms), import_s=import_s,
+        import_spans=import_spans,
+        host_ms=out["segment"]["seconds"] * 1e3 - out["segment"]["signature_ms"])
+    log(f"chain: segment of {CHAIN_SEGMENT} blocks ({last - CHAIN_SEGMENT + 1}-{last}): "
+        f"one backend call of {out['segment']['calls'][0]} sets, "
+        f"{out['segment']['keys'][0]} keys, bucket {out['segment']['bucket']} "
+        f"({'aggregated' if out['segment']['aggregated'] else 'per-set'}), "
+        f"{out['segment']['pairs'][0]} pairs; first call "
+        f"{out['segment']['first_call_s']:.3f} s, replayed {replay_ms:.1f} ms; host: "
+        f"sets {sum(sets_ms):.1f} ms, state advance + sets "
+        f"{out['segment']['host_ms']:.1f} ms; import of the {CHAIN_SEGMENT} blocks "
+        f"{import_s:.3f} s, span ms "
+        f"{json.dumps({k: round(v, 1) for k, v in import_spans.items()})}; card: {card}")
+
+    step("forged segment", last, lambda: C.bv.signature_verify_chain_segment(
+        chain, forged_segment), [n_sets(*forged_segment)],
+        want_error="segment signature batch failed", moves_head=False)
+    step("forged proposal", bad_gossip.message.slot,
+         lambda: C.bv.process_gossip_block(chain, bad_gossip), [1],
+         want_error="invalid proposer signature", moves_head=False)
+
+    t0 = time.perf_counter()
+    twin = C.beacon_chain.BeaconChain(
+        C.hot_cold.HotColdDB(C.kv.MemoryStore(), preset, spec), reg.genesis, preset, spec)
+    for b in [b31, b32] + segment:
+        twin.slot_clock.set_slot(b.message.slot)
+        twin.process_block(b, strategy=NOV)
+    twin_s = time.perf_counter() - t0
+    need(chain_view(C, chain) == chain_view(C, twin),
+         "chain: head or checkpoints differ from the NO_VERIFICATION twin's")
+    t0 = time.perf_counter()
+    got = [(label, card_v, oracle()) for label, card_v, oracle in oracles]
+    oracle_wait_s = time.perf_counter() - t0
+    for label, card_v, cpu_v in got:
+        need(card_v == cpu_v, f"chain: {label}: card {card_v}, cpu oracle {cpu_v}")
+    need([v for _, v, _ in got] == [True] * 4 + [False] * 2,
+         f"chain: verdicts {[v for _, v, _ in got]}")
+    head_slot = chain.head_state.slot
+    jc, fc = chain.justified_checkpoint, chain.finalized_checkpoint
+    out.update(build_s=build_s, twin_s=twin_s, oracle_wait_s=oracle_wait_s,
+               head_slot=int(head_slot), justified_epoch=int(jc[0]),
+               finalized_epoch=int(fc[0]), seconds=time.perf_counter() - t_phase)
+    log(f"chain: head at slot {head_slot}, justified epoch {jc[0]}, finalized epoch "
+        f"{fc[0]}, equal to the twin's (built in {twin_s:.1f} s); every verdict "
+        f"{[v for _, v, _ in got]} equal to the cpu oracle's (waited {oracle_wait_s:.1f} "
+        f"s at the end); phase wall {out['seconds']:.1f} s; card: {card}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -2475,7 +2774,7 @@ def main(argv=None) -> int:
     if "adversary" in phases:
         api.set_backend("torch_cuda")
         paths["adversary"] = phase_adversary(torch, K, TP, B, api, launches, card)
-    if "block" in phases or "attestations" in phases:
+    if any(p in phases for p in ("block", "attestations", "chain")):
         api.set_backend("torch_cuda")
         C = consensus_modules()
         with host_pool() as pool:
@@ -2486,6 +2785,8 @@ def main(argv=None) -> int:
             if "attestations" in phases:
                 paths["attestations"] = phase_attestations(
                     torch, K, B, C, reg, launches, card)
+            if "chain" in phases:
+                paths["chain"] = phase_chain(torch, K, TP, B, C, reg, launches, card)
 
     if results:
         line = []

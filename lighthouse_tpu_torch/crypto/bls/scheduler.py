@@ -458,3 +458,9 @@ def configure(**kwargs) -> ContinuousBatchScheduler:
         _DEFAULT.drain()
     _DEFAULT = ContinuousBatchScheduler(**kwargs)
     return _DEFAULT
+
+
+def set_slot_clock(slot_clock) -> None:
+    """Point the default scheduler's verdict-delay histograms at the
+    chain's injected slot clock (BeaconChain construction seat)."""
+    default_scheduler().slot_clock = slot_clock

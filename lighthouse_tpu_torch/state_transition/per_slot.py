@@ -1,8 +1,8 @@
 """Per-slot state advancement (reference consensus/state_processing/src/
-per_slot_processing.rs:25): cache roots and bump the slot. Also proposer
-selection and state cloning. The port's copy of
-lighthouse_tpu/state_transition/per_slot.py within an epoch: epoch
-processing at boundaries waits for per_epoch (ROADMAP Queue 1 item 14.2)."""
+per_slot_processing.rs:25): cache roots, bump the slot, and run epoch
+processing at boundaries. Also proposer selection and state cloning.
+
+The port's copy of lighthouse_tpu/state_transition/per_slot.py."""
 
 from __future__ import annotations
 
@@ -61,23 +61,19 @@ def process_slot(state, preset: Preset):
 
 
 def process_slots(state, target_slot: int, preset: Preset, spec):
-    """Advance `state` to `target_slot` (spec process_slots; reference
-    per_slot_processing). Epoch processing and fork upgrades wait for the
-    rest of the port's state_transition/ (ROADMAP Queue 1 item 14.2): a
-    target across an epoch boundary raises NotImplementedError before the
-    state is touched."""
+    """Advance `state` to `target_slot`, running epoch transitions at
+    boundaries (spec process_slots; reference per_slot_processing)."""
     if target_slot < state.slot:
         raise BlockProcessingError(
             f"cannot rewind state from {state.slot} to {target_slot}"
         )
-    boundary = (state.slot // preset.slots_per_epoch + 1) * preset.slots_per_epoch
-    if target_slot >= boundary:
-        raise NotImplementedError(
-            f"process_slots {state.slot} -> {target_slot} crosses the epoch "
-            f"boundary at slot {boundary}: per_epoch processing is not ported "
-            "yet (ROADMAP Queue 1 item 14.2)"
-        )
+    from .per_epoch import process_epoch
+    from .upgrades import upgrade_state_if_due
+
     while state.slot < target_slot:
         process_slot(state, preset)
+        if (state.slot + 1) % preset.slots_per_epoch == 0:
+            process_epoch(state, preset, spec)
         state.slot += 1
+        state = upgrade_state_if_due(state, preset, spec)
     return state

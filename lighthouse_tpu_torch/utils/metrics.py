@@ -5,10 +5,12 @@ and of the metric families that the verification seam feeds: backend
 degradation, the pipeline, message aggregation, the scheduler, and the
 device telemetry of backends/torch_cuda.py; and the families that the
 gossip attestation batches (chain/attestation_verification.py, with its
-bisection) and the beacon processor feed.
+bisection), the beacon processor, block import (chain/beacon_chain.py,
+chain/block_verification.py) and the store's journal (store/kv.py) feed.
 
 Exported names, types and help texts are the JAX package's, so the two
-registries compare line by line. The rest of the chain family, the
+registries compare line by line. The rest of the chain family (the
+observed-delay and equivocation families, which network/ feeds), the
 network family and the speculation family wait for the modules that feed
 them; of the last, only the committee table's size gauge is here, which
 torch_cuda feeds."""
@@ -292,6 +294,46 @@ BLS_GATHER_MISSES = REGISTRY.counter(
     "Batches that fell back to per-key host limb packing",
 )
 
+# -- the block import family (chain/beacon_chain.py, chain/block_verification
+# .py; the beacon_chain metric family of metrics.rs:37-80) -----------------
+
+BLOCK_PROCESSING_TIMES = REGISTRY.histogram(
+    "beacon_block_processing_seconds", "Full block import time"
+)
+BLOCK_SIGNATURE_TIMES = REGISTRY.histogram(
+    "beacon_block_processing_signature_seconds",
+    "Signature batch verification phase",
+)
+BLOCK_TRANSITION_TIMES = REGISTRY.histogram(
+    "beacon_block_processing_state_transition_seconds",
+    "per_block/per_slot state transition phase",
+)
+BLOCK_STATE_ROOT_TIMES = REGISTRY.histogram(
+    "beacon_block_processing_state_root_seconds", "State-root computation"
+)
+BLOCK_FORK_CHOICE_TIMES = REGISTRY.histogram(
+    "beacon_block_processing_fork_choice_seconds", "Fork-choice import + head"
+)
+BLOCKS_IMPORTED = REGISTRY.counter(
+    "beacon_blocks_imported_total", "Blocks successfully imported"
+)
+BLOCKS_REJECTED = REGISTRY.counter(
+    "beacon_blocks_rejected_total", "Blocks rejected on import"
+)
+
+# -- the store's write-ahead journal (store/kv.py) ---------------------------
+
+STORE_JOURNAL_REPLAYS = REGISTRY.counter(
+    "store_journal_replays_total",
+    "Committed write-ahead batches re-applied on store reopen (the crash "
+    "hit mid-apply; redo)",
+)
+STORE_JOURNAL_ROLLBACKS = REGISTRY.counter(
+    "store_journal_rollbacks_total",
+    "Torn/uncommitted write-ahead batches discarded on store reopen (the "
+    "crash hit the intent write; the batch never happened)",
+)
+
 # -- the gossip attestation batch family (chain/attestation_verification.py,
 # the beacon_chain metric family of metrics.rs:37-80) ----------------------
 
@@ -347,11 +389,29 @@ BLS_WEIGHT_REDRAWS = REGISTRY.counter(
     "a forged set cancel inside the combination)",
 )
 
-# -- slot-relative delay (the scheduler's verdict-delay histograms) ----------
+# -- slot-relative delay (the scheduler's verdict-delay histograms and block
+# import's milestones) --------------------------------------------------------
 
 _SLOT_DELAY_BUCKETS = (
     0.05, 0.1, 0.25, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0,
 )
+
+BLOCK_VERIFIED_DELAY = REGISTRY.histogram(
+    "beacon_block_verified_delay_seconds",
+    "Slot-start to full signature verification of the block",
+    buckets=_SLOT_DELAY_BUCKETS,
+)
+BLOCK_IMPORTED_DELAY = REGISTRY.histogram(
+    "beacon_block_imported_delay_seconds",
+    "Slot-start to completed import (store + fork choice) of the block",
+    buckets=_SLOT_DELAY_BUCKETS,
+)
+BLOCK_HEAD_DELAY = REGISTRY.histogram(
+    "beacon_block_head_delay_seconds",
+    "Slot-start to the block becoming the canonical head",
+    buckets=_SLOT_DELAY_BUCKETS,
+)
+
 
 def slot_delay_seconds(slot_clock, slot: int) -> float:
     """Seconds past `slot`'s start on the INJECTED slot clock (negative

@@ -1,10 +1,13 @@
 """chip_smoke.py's host-side helpers on the CPU: the kernel metadata it
 reports, the profiler keys it reads each kernel's device time from, the
 launch counts it holds every verify to, its summary of nvcc's ptxas
-report, and the host side of the block and attestations phases at
-MINIMAL (the tiled registry, the block's set and key counts, the gossip
-batches through the processor, the bisection bound). (The script itself
-needs a card: `python3 chip_smoke.py`.)"""
+report, the host side of the block and attestations phases at MINIMAL
+(the tiled registry, the block's set and key counts, the gossip batches
+through the processor, the bisection bound), and of the chain phase (a
+block built with its state root imports, a 4-block segment links and
+verifies in one call of all its sets, the forged segment is rejected,
+the oracle's verdict over parts). (The script itself needs a card:
+`python3 chip_smoke.py`.)"""
 
 import importlib.util
 import re
@@ -180,7 +183,7 @@ def test_pipeline_phase_runs_last_on_warmed_buckets():
     assert set(CS.ALL_PHASES[:at]) >= {"gossip", "aggregate", "warm", "table"}
     # after it only the phases that reuse none of its state
     assert CS.ALL_PHASES[at + 1:] == ("monolith", "windowed", "correct", "adversary",
-                                      "block", "attestations")
+                                      "block", "attestations", "chain")
     warm = set(B.DEFAULT_WARM_BUCKETS)
     assert [b for b in CS.PIPELINE_BUCKETS if b not in warm] == [(1024, 4, 32)]
     assert (16, 4, 16) in warm and S.warm_capacity(64) == 64
@@ -394,7 +397,8 @@ def test_windowed_phase_runs_a_child_with_the_switch(monkeypatch, rc, fails):
 
 
 def test_block_and_attestations_phases_run_last():
-    assert CS.ALL_PHASES[-2:] == ("block", "attestations")
+    """Last but for the chain phase, which imports the block phase's block."""
+    assert CS.ALL_PHASES[-3:-1] == ("block", "attestations")
     assert "block " in CS.__doc__ and "attestations " in CS.__doc__
     assert CS.BLOCK_VALIDATORS // 32 // 128 == 4 and CS.BLOCK_DISTINCT_KEYS >= 1024
     assert (CS.GOSSIP_UNAGGREGATED, CS.GOSSIP_AGGREGATES) == (64, 32)
@@ -424,7 +428,7 @@ def minimal_chain():
     state, secret_of = CS.registry_state(C, preset, spec, 64, 16, CS.HostCrypto())
     state = C.per_slot.process_slots(state, 7, preset, spec)
     cache = C.pubkey_cache.ValidatorPubkeyCache(state, device="cpu")
-    block = CS.build_block(C, state, preset, spec, secret_of, CS.HostCrypto())
+    block, _ = CS.produce_block(C, state, preset, spec, secret_of, CS.HostCrypto())
     return C, state, preset, spec, secret_of, cache, block
 
 
@@ -510,6 +514,141 @@ def test_gossip_through_the_processor_isolates_forgeries(minimal_chain):
         C.api._BACKEND, C.api._BACKEND_NAME, C.api._DEVICE = saved
 
 
+# --- the chain phase's host side, at MINIMAL ------------------------------------
+
+
+def test_chain_phase_runs_after_block_and_attestations():
+    """It imports the block phase's block, over the registry they share."""
+    assert CS.ALL_PHASES[-3:] == ("block", "attestations", "chain")
+    assert "chain " in CS.__doc__
+    assert CS.CHAIN_SEGMENT == 4 and 0 < CS.CHAIN_FORGED < CS.CHAIN_SEGMENT
+
+
+class _OracleHost:
+    """HostCrypto's oracle as a list of the parts it was asked about, each
+    part's verdict False iff it holds a set named "bad"."""
+
+    def __init__(self):
+        self.parts = []
+
+    def oracle(self, batches, seed):
+        self.parts.extend(batches)
+        return lambda: ["bad" not in b for b in batches]
+
+
+@pytest.mark.parametrize("n, bad", [(1, False), (7, False), (524, False), (524, True)])
+def test_oracle_verdict_splits_a_batch_over_the_pool(n, bad):
+    """The cpu oracle's verdict on a batch is the AND of its parts' (at
+    most one a worker), which cover the batch once, in order."""
+    sets = ["ok"] * n
+    if bad:
+        sets[300] = "bad"
+    host = _OracleHost()
+    assert CS.oracle_verdict(host, sets, 37)() is not bad
+    assert len(host.parts) == min(n, 8)
+    assert [x for p in host.parts for x in p] == sets
+
+
+@pytest.fixture(scope="module")
+def minimal_import():
+    """MINIMAL altair genesis of 64 validators tiled from 16 keys; a
+    segment of 4 blocks at slots 1-4 built as the chain phase builds them
+    (each with its state root, on the post-state of the one before); and
+    the segment's first two blocks with attestation 1 of the second
+    forged."""
+    torch = pytest.importorskip("torch")
+    torch.set_num_threads(1)
+    C = CS.consensus_modules()
+    T = C.types
+    preset, spec = T.MINIMAL, T.ChainSpec.interop(altair_fork_epoch=0)
+    host = CS.HostCrypto()
+    genesis, secret_of = CS.registry_state(C, preset, spec, 64, 16, host)
+    segment, posts = CS.produce_segment(C, genesis, preset, spec, secret_of, host, 4)
+    forged, _ = CS.produce_segment(C, posts[0], preset, spec, secret_of, host, 1,
+                                   forge=1)
+    return C, genesis, preset, spec, segment, posts, [segment[0]] + forged
+
+
+def _chain_on(C, genesis, preset, spec, device="cpu"):
+    return C.beacon_chain.BeaconChain(
+        C.hot_cold.HotColdDB(C.kv.MemoryStore(), preset, spec), genesis, preset, spec,
+        device=device)
+
+
+@pytest.fixture
+def backend(minimal_import):
+    """Select a backend of the port for the test (restored after)."""
+    C = minimal_import[0]
+    saved = (C.api._BACKEND, C.api._BACKEND_NAME, C.api._DEVICE)
+    yield C.api.set_backend
+    C.api._BACKEND, C.api._BACKEND_NAME, C.api._DEVICE = saved
+
+
+def _fake_calls(monkeypatch, C):
+    from lighthouse_tpu_torch.crypto.bls.backends import fake
+
+    calls, real = [], fake.verify_signature_sets
+
+    def spy(sets, *a, **kw):
+        calls.append(len(sets))
+        return real(sets, *a, **kw)
+
+    monkeypatch.setattr(fake, "verify_signature_sets", spy)
+    return calls
+
+
+def test_chain_phase_block_with_its_state_root_imports(minimal_import, backend,
+                                                       monkeypatch):
+    """Through process_gossip_block on the fake backend: the proposal
+    alone, then the block's other sets; the head moves to the block and
+    its state is produce_block's post-state."""
+    C, genesis, preset, spec, segment, posts, _ = minimal_import
+    backend("fake")
+    calls = _fake_calls(monkeypatch, C)
+    chain = _chain_on(C, genesis, preset, spec)
+    chain.slot_clock.set_slot(1)
+    root = C.bv.process_gossip_block(chain, segment[0])
+    n_sets = len(segment[0].message.body.attestations) + 3
+    assert calls == [1, n_sets - 1]
+    assert chain.head_root == root == segment[0].message.tree_hash_root()
+    assert C.ssz.cached_root(chain.head_state) == C.ssz.cached_root(posts[0])
+    assert chain.pubkey_cache._device == "cpu"
+
+
+def test_chain_phase_segment_links_in_one_call(minimal_import, backend, monkeypatch):
+    """signature_verify_chain_segment over the 4 blocks makes one backend
+    call of every block's sets; importing them moves the head to the last,
+    as on a twin chain that imports them without signature checks."""
+    C, genesis, preset, spec, segment, posts, _ = minimal_import
+    backend("fake")
+    calls = _fake_calls(monkeypatch, C)
+    chain = _chain_on(C, genesis, preset, spec)
+    chain.slot_clock.set_slot(4)
+    verified = C.bv.signature_verify_chain_segment(chain, segment)
+    assert calls == [sum(len(b.message.body.attestations) + 3 for b in segment)]
+    roots = [v.import_into(chain) for v in verified]
+    assert len(calls) == 1 and chain.head_root == roots[-1]
+    assert [b.message.parent_root for b in segment[1:]] == roots[:-1]
+    twin = _chain_on(C, genesis, preset, spec)
+    for b in segment:
+        twin.slot_clock.set_slot(b.message.slot)
+        twin.process_block(b, strategy=C.per_block.BlockSignatureStrategy.NO_VERIFICATION)
+    assert CS.chain_view(C, twin) == CS.chain_view(C, chain)
+
+
+def test_chain_phase_forged_segment_rejected_on_the_cpu_oracle(minimal_import, backend):
+    """The segment with the forged attestation fails its one batch on the
+    cpu backend, with the head unchanged."""
+    C, genesis, preset, spec, _, _, forged = minimal_import
+    backend("cpu")
+    chain = _chain_on(C, genesis, preset, spec)
+    chain.slot_clock.set_slot(2)
+    head = chain.head_root
+    with pytest.raises(C.beacon_chain.BlockError, match="segment signature batch failed"):
+        C.bv.signature_verify_chain_segment(chain, forged)
+    assert chain.head_root == head
+
+
 # --- the same on the card (`gpu`) ------------------------------------------------
 
 
@@ -572,3 +711,22 @@ def test_forged_gossip_item_isolated_on_the_card(card_chain):
     got, rejected = CS.verdicts(bad, res["unaggregated"])
     assert rejected == {bad[5].tree_hash_root(): "invalid signature"}
     assert got == {a.tree_hash_root() for i, a in enumerate(un) if i != 5}
+
+
+@pytest.mark.gpu
+def test_chain_verdicts_on_the_card(minimal_import, backend):
+    """The gossip block and the segment import through torch_cuda on the
+    card (the chain's pubkey table there); the forged segment is
+    rejected."""
+    _card()
+    C, genesis, preset, spec, segment, _, forged = minimal_import
+    backend("torch_cuda")
+    chain = _chain_on(C, genesis, preset, spec, device=None)
+    assert chain.pubkey_cache.device_table().device.type == "cuda"
+    chain.slot_clock.set_slot(4)
+    with pytest.raises(C.beacon_chain.BlockError, match="segment signature batch failed"):
+        C.bv.signature_verify_chain_segment(chain, forged)
+    assert C.bv.process_gossip_block(chain, segment[0]) == chain.head_root
+    verified = C.bv.signature_verify_chain_segment(chain, segment[1:])
+    roots = [v.import_into(chain) for v in verified]
+    assert chain.head_root == roots[-1] == segment[-1].message.tree_hash_root()

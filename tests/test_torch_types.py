@@ -3,8 +3,8 @@ state_transition/per_slot.py) against the JAX package's on the CPU: the
 swap-or-not shuffle, the interop keys, interop genesis states (phase0 and
 altair, MINIMAL, 64 validators) byte for byte, every committee of epochs 0
 and 1, proposer indices, domains, seeds and signing roots, sync
-committees, the presets and chain specs, slot processing within an epoch,
-and the SSZ carry of states and blocks (tests/torch_port_util.py).
+committees, the presets and chain specs, slot processing within and across
+epochs, and the SSZ carry of states and blocks (tests/torch_port_util.py).
 
 The JAX genesis takes its public keys from the port's bytes
 (`jax_keys_from_port`); the keypair tests hold every secret key and the
@@ -187,14 +187,15 @@ def test_presets_and_chain_specs_equal_jax():
 
 @pytest.mark.parametrize("fork", ["phase0", "altair"])
 def test_slot_processing_within_an_epoch_equals_jax(genesis, fork):
-    """process_slots to the epoch's last slot gives the JAX state's bytes;
-    one slot further crosses the boundary, which the port refuses (epoch
-    processing is not ported) before touching the state."""
+    """process_slots to the epoch's last slot gives the JAX state's bytes,
+    and so does going on across the next two boundaries (epoch
+    processing at slots 8 and 16)."""
     js, ts = genesis[fork]
     js = JPS.process_slots(JPS.clone_state(js), 7, J.MINIMAL, _spec(J, fork))
     ts = TPS.process_slots(TPS.clone_state(ts), 7, T.MINIMAL, _spec(T, fork))
     assert ts.as_ssz_bytes() == js.as_ssz_bytes()
-    before = ts.as_ssz_bytes()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14.2"):
-        TPS.process_slots(ts, 8, T.MINIMAL, _spec(T, fork))
-    assert ts.as_ssz_bytes() == before
+    for target in (8, 17):
+        js = JPS.process_slots(js, target, J.MINIMAL, _spec(J, fork))
+        ts = TPS.process_slots(ts, target, T.MINIMAL, _spec(T, fork))
+        assert ts.slot == target
+        assert ts.as_ssz_bytes() == js.as_ssz_bytes()
