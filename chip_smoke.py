@@ -165,6 +165,46 @@ Phases (each one fails the run with a nonzero exit):
              transition, state root, store, fork choice), process_epoch ms
              at the boundary, the segment's bucket, pairs, first-call s,
              replayed ms and host ms to build its sets, the phase's wall
+  sync       the sync committee's traffic over the chain phase's chain
+             (which it needs), every verify on torch_cuda: one slot's
+             messages at the head, one a committee position (512, each
+             position's key from its own holder), through the processor's
+             gossip_sync_message queue: ONE sync-lane call of 512 sets over
+             one root, into a SyncMessagePool and a ValidatorMonitor
+             registered on the first 64 positions' senders; that slot's
+             contributions (SYNC_AGGREGATORS a subnet, the senders whose
+             selection proofs is_sync_committee_aggregator selects, each
+             wrapping the pool's contribution of its subnet) through
+             gossip_sync_contribution: one call of 3 sets each (selection
+             proof, contribution-and-proof, the contribution's 128-key
+             aggregate); both batches replayed; a sync-lane submit of the
+             messages timed on an idle card and behind a ~1 s spin; both
+             batches with 1 and 3 planted forgeries: exactly those
+             rejected, within the bisection bound; the SyncContributionPool's
+             sync aggregate in the next block, which the chain imports; a
+             LightClientStore bootstrapped at the genesis block follows
+             the optimistic update that aggregate signs (512 keys gathered
+             from the chain's table), and rejects the same update with one
+             forged signature, its store unchanged; the monitor's count of
+             the messages it saw
+  pool       one slot's attestations over the chain's head (after the
+             chain and sync phases): its 4 committees' 512 unaggregated
+             attestations through the processor in batches of 64 into a
+             NaiveAggregationPool (4 full aggregates) and an OperationPool;
+             32 gossip aggregates with speculation off, then attach_speculation
+             (256 committee aggregates parked on the card by
+             set_committee_aggregates, corrections by correct_aggregate_device,
+             each equal to the host's), the idle pass (4 speculative
+             verifies) and the same aggregates with speculation on (equal
+             verdicts, fewer keys); the next slot's aggregates confirmed by
+             lookup (2 sets each); the speculation-poisoning audit; the
+             block get_attestations packs, which the chain imports; an
+             aggregate for that block that arrives first, waits in a
+             ReprocessQueue and verifies once the block is imported; the
+             SPECULATE_* counts. In both phases every call's launches are
+             held to expected_launches, every verdict to the cpu oracle's,
+             and the head and checkpoints to the twin chain's, which
+             imports every block the chain imports without verifying
 
 The entry points run each stage as a CUDA graph: in every path the first
 verify of a batch captures its stages and the verifies after it replay
@@ -201,7 +241,7 @@ import time
 ALL_PHASES = (
     "build", "kernels", "parity", "gossip", "aggregate", "warm", "table",
     "aggverify", "graphs", "pipeline", "monolith", "windowed", "correct",
-    "adversary", "block", "attestations", "chain",
+    "adversary", "block", "attestations", "chain", "sync", "pool",
 )
 # run only as the windowed phase's child process
 CHILD_PHASES = ("windowed-child",)
@@ -1191,20 +1231,27 @@ def pipeline_stream(torch, K, TP, api, P, label, stream, launches, card):
 SPIN_CYCLES = int(2e9)  # one spinning kernel of ~1 s at the H100's clocks
 
 
+def spin_timed(torch, fn, spin=True):
+    """fn() behind one spinning kernel on the stream (`torch.cuda._sleep`),
+    or on an idle card: (its result, host ms until it returned, ms until
+    the card was idle again)."""
+    torch.cuda.synchronize()
+    if spin:
+        torch.cuda._sleep(SPIN_CYCLES)
+    t0 = time.perf_counter()
+    out = fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return out, (t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3
+
+
 def busy_card_dispatch(torch, api, P, batches, card):
     """Submits while the card is busy: one spinning kernel ahead of them
-    on the stream (`torch.cuda._sleep`), then one submit of each batch; a
-    submit that waited on the card would take the spin's time. A pageable
-    host-to-device copy under the same spin shows what such a wait looks
-    like."""
+    on the stream, then one submit of each batch; a submit that waited on
+    the card would take the spin's time. A pageable host-to-device copy
+    under the same spin shows what such a wait looks like."""
     def timed(fn):
-        torch.cuda.synchronize()
-        torch.cuda._sleep(SPIN_CYCLES)
-        t0 = time.perf_counter()
-        out = fn()
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        return out, (t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3
+        return spin_timed(torch, fn)
 
     _, _, spin_ms = timed(lambda: None)
     _, pageable_ms, _ = timed(lambda: torch.zeros(1 << 16).to("cuda"))
@@ -1767,8 +1814,8 @@ FORGED_AGGREGATES = ((11,), (3, 19, 28))
 
 
 def consensus_modules():
-    """The port's consensus modules that the block, attestations and chain
-    phases drive, as one namespace."""
+    """The port's consensus modules that the block, attestations, chain,
+    sync and pool phases drive, as one namespace."""
     import importlib
     from types import SimpleNamespace
 
@@ -1782,7 +1829,10 @@ def consensus_modules():
         metrics="utils.metrics", tracing="utils.tracing",
         per_block="state_transition.per_block", per_epoch="state_transition.per_epoch",
         beacon_chain="chain.beacon_chain", bv="chain.block_verification",
-        hot_cold="store.hot_cold", kv="store.kv",
+        hot_cold="store.hot_cold", kv="store.kv", containers="types.containers",
+        sync="chain.sync_committee_verification", monitor="chain.validator_monitor",
+        light="chain.light_client", pool="pool", speculate="speculate",
+        reprocess="processor.reprocess", adversary="crypto.bls.adversary",
     )
     return SimpleNamespace(**{
         k: importlib.import_module("lighthouse_tpu_torch." + v)
@@ -1854,21 +1904,25 @@ def oracle_job(sets):
 class HostCrypto:
     """The phases' host crypto: signatures made a pass at a time, interop
     keys, the cpu oracle's verdicts; on the host pool when there is one,
-    else in this process."""
+    else in this process. Signatures are memoized on (scalar, root): under
+    the tiled registry many validators hold one key, and their signatures
+    over one root repeat."""
 
     def __init__(self, pool=None):
         self.pool = pool
+        self._signed = {}
 
     def sign(self, jobs):
         """[(secret scalars, root)] -> [signature bytes], each made once
         from its scalars summed mod r (the aggregate of their
         signatures)."""
-        args = [(sum(scalars), root) for scalars, root in jobs]
-        if not args:
-            return []
-        if self.pool is None:
-            return [_sign(k, r) for k, r in args]
-        return list(self.pool.map(_sign, *zip(*args)))
+        args = [(sum(scalars), bytes(root)) for scalars, root in jobs]
+        todo = list(dict.fromkeys(a for a in args if a not in self._signed))
+        if todo:
+            sigs = ([_sign(k, r) for k, r in todo] if self.pool is None
+                    else self.pool.map(_sign, *zip(*todo)))
+            self._signed.update(zip(todo, sigs))
+        return [self._signed[a] for a in args]
 
     def map(self, fn, items):
         return list(map(fn, items) if self.pool is None else self.pool.map(fn, items))
@@ -1934,7 +1988,7 @@ def wrong_root(root):
 
 
 def produce_block(C, state, preset, spec, secret_of, host, forge=None, attest=True,
-                  forge_proposal=False):
+                  forge_proposal=False, attestations=None, sync_aggregate=None):
     """One SignedBeaconBlockAltair at `state.slot` (slot processing done)
     and its post-state: an attestation of every committee of the slots it
     may include (the inclusion window, at most MAX_ATTESTATIONS), all bits
@@ -1945,13 +1999,17 @@ def produce_block(C, state, preset, spec, secret_of, host, forge=None, attest=Tr
     checks, as a proposer computes it; and the proposal signature.
     `forge` = k signs attestation k over a wrong root, `attest=False`
     leaves the attestations out, and `forge_proposal` signs the proposal
-    over a wrong root."""
+    over a wrong root. `attestations` (signed, as an operation pool packs
+    them) and `sync_aggregate` (as a contribution pool makes it) take the
+    place of the ones it would make."""
     T = C.types
     t = T.types_for(preset)
     slot, spe = state.slot, preset.slots_per_epoch
     epoch = slot // spe
     ctxt = C.context.ConsensusContext(preset, spec)
     atts, jobs = [], []
+    if attestations is not None:
+        atts, attest = list(attestations), False
 
     def attest_(s, index, committee, bits):
         data = attestation_data(C, state, s, index, preset)
@@ -1972,28 +2030,32 @@ def produce_block(C, state, preset, spec, secret_of, host, forge=None, attest=Tr
         k = index % len(committee)
         attest_(last, index, committee, tuple(i != k for i in range(len(committee))))
     del atts[preset.max_attestations:], jobs[preset.max_attestations:]
+    signed_here = len(jobs)
 
-    first = {}
-    for i, v in enumerate(state.validators):
-        first.setdefault(bytes(v.pubkey), i)
-    members = [first[bytes(pk)] for pk in state.current_sync_committee.pubkeys]
-    sync_domain = T.get_domain(state, T.DOMAIN_SYNC_COMMITTEE,
-                               max(slot - 1, 0) // spe, preset)
     parent_root = state.latest_block_header.tree_hash_root()
-    jobs.append(([secret_of(m) for m in members], T.SigningData(
-        object_root=parent_root, domain=sync_domain).tree_hash_root()))
+    if sync_aggregate is None:
+        first = {}
+        for i, v in enumerate(state.validators):
+            first.setdefault(bytes(v.pubkey), i)
+        members = [first[bytes(pk)] for pk in state.current_sync_committee.pubkeys]
+        sync_domain = T.get_domain(state, T.DOMAIN_SYNC_COMMITTEE,
+                                   max(slot - 1, 0) // spe, preset)
+        jobs.append(([secret_of(m) for m in members], T.SigningData(
+            object_root=parent_root, domain=sync_domain).tree_hash_root()))
     proposer = C.per_slot.get_beacon_proposer_index(state, preset, spec)
     jobs.append(([secret_of(proposer)], T.SigningData(
         object_root=C.ssz.uint64.hash_tree_root(epoch),
         domain=T.get_domain(state, T.DOMAIN_RANDAO, epoch, preset)).tree_hash_root()))
     sigs = host.sign(jobs)
-    for att, sig in zip(atts, sigs):
+    for att, sig in zip(atts[:signed_here], sigs):
         att.signature = sig
+    if sync_aggregate is None:
+        sync_aggregate = t.SyncAggregate(
+            sync_committee_bits=tuple(True for _ in members),
+            sync_committee_signature=sigs[-2])
     body = t.BeaconBlockBodyAltair(
         randao_reveal=sigs[-1], eth1_data=state.eth1_data, attestations=tuple(atts),
-        sync_aggregate=t.SyncAggregate(
-            sync_committee_bits=tuple(True for _ in members),
-            sync_committee_signature=sigs[-2]))
+        sync_aggregate=sync_aggregate)
     block = t.BeaconBlockAltair(slot=slot, proposer_index=proposer,
                                 parent_root=parent_root, state_root=bytes(32),
                                 body=body)
@@ -2178,34 +2240,58 @@ def gossip_chain(C, state, preset, spec, cache, current_slot):
                            pubkey_cache=cache, validator_monitor=None)
 
 
-def process_gossip(C, chain, unaggregated=(), aggregates=()):
-    """The batches through a BeaconProcessor whose gossip handlers submit
-    them (`submit_*_batch`) and return the PendingBatch, kept as a
-    DeferredWork whose completion records (verified, rejected). Returns
-    ({"unaggregated" | "aggregate": (verified, rejected)}, processor)."""
+def run_processor(C, label, lanes, max_batch=1024):
+    """Items through a BeaconProcessor (batches of at most `max_batch`
+    items). `lanes` is {queue: (name, submit, items, sink)}: the queue's
+    handler calls `submit(batch)` and keeps the PendingBatch it returns as
+    a DeferredWork whose completion records (verified, rejected) under
+    `name` and hands the verified items to `sink(name, verified)` (None: no
+    sink), as the node puts them into its pools. Returns ({name:
+    (verified, rejected)} over every batch, processor)."""
+    out = {}
+
+    def handler(name, submit, sink):
+        def handle(items):
+            pending = submit(items)
+
+            def complete():
+                verified, rejected = pending.complete()
+                got = out.setdefault(name, ([], []))
+                got[0].extend(verified)
+                got[1].extend(rejected)
+                if sink is not None:
+                    sink(name, verified)
+            return C.processor.DeferredWork(done=pending.done, complete=complete)
+        return handle
+
+    bp = C.processor.BeaconProcessor(max_batch=max_batch, handlers={
+        queue: handler(name, submit, sink)
+        for queue, (name, submit, _, sink) in lanes.items()})
+    for queue, (_, _, items, _) in lanes.items():
+        for item in items:
+            need(bp.submit(queue, item), f"{label}: {queue} queue full")
+    bp.run_until_idle()
+    need(not bp.handler_errors, f"{label}: processor handler errors {bp.last_error}")
+    return out, bp
+
+
+def process_gossip(C, chain, unaggregated=(), aggregates=(), sink=None, max_batch=1024):
+    """The attestation batches through `run_processor`, whose gossip
+    handlers submit them (`submit_*_batch`). Returns ({"unaggregated" |
+    "aggregate": (verified, rejected)} over every batch, processor)."""
     O = C.observed
     attesters, aggs, aggregators = (O.ObservedAttesters(), O.ObservedAggregates(),
                                     O.ObservedAggregators())
-    out = {}
-
-    def deferred(name, pending):
-        def complete():
-            out[name] = pending.complete()
-        return C.processor.DeferredWork(done=pending.done, complete=complete)
-
-    bp = C.processor.BeaconProcessor(handlers={
-        "gossip_attestation": lambda items: deferred(
-            "unaggregated", C.att.submit_unaggregated_batch(chain, items, attesters)),
-        "gossip_aggregate": lambda items: deferred(
-            "aggregate", C.att.submit_aggregate_batch(chain, items, aggs, aggregators)),
-    })
-    for a in unaggregated:
-        need(bp.submit("gossip_attestation", a), "gossip: attestation queue full")
-    for a in aggregates:
-        need(bp.submit("gossip_aggregate", a), "gossip: aggregate queue full")
-    bp.run_until_idle()
-    need(not bp.handler_errors, f"gossip: processor handler errors {bp.last_error}")
-    return out, bp
+    return run_processor(C, "gossip", {
+        "gossip_attestation": (
+            "unaggregated",
+            lambda items: C.att.submit_unaggregated_batch(chain, items, attesters),
+            unaggregated, sink),
+        "gossip_aggregate": (
+            "aggregate",
+            lambda items: C.att.submit_aggregate_batch(chain, items, aggs, aggregators),
+            aggregates, sink),
+    }, max_batch=max_batch)
 
 
 def verdicts(items, result):
@@ -2263,7 +2349,7 @@ def registry(torch, C, host, card):
 
     return SimpleNamespace(state=state, genesis=genesis, chain=chain, preset=preset,
                            spec=spec, cache=cache, secret_of=secret_of, host=host,
-                           summary=out, block=None)
+                           summary=out, block=None, imported=[], twin=None)
 
 
 def phase_block(torch, K, TP, B, C, reg, launches, card):
@@ -2498,7 +2584,6 @@ def phase_chain(torch, K, TP, B, C, reg, launches, card):
     M, PS = C.metrics, C.per_slot
     t_phase = time.perf_counter()
     C.tracing.configure(clock=_WallClock())
-    NOV = C.per_block.BlockSignatureStrategy.NO_VERIFICATION
 
     t0 = time.perf_counter()
     b31, post31 = reg.block or produce_block(C, reg.state, preset, spec,
@@ -2525,7 +2610,7 @@ def phase_chain(torch, K, TP, B, C, reg, launches, card):
         process_epoch(*args, **kwargs)
         epoch_ms.append((time.perf_counter() - t) * 1e3)
 
-    oracles, out, sets_of = [], {}, {}
+    calls, out, sets_of = Calls(torch, K, TP, B, C, host, launches, card), {}, {}
 
     def n_sets(*blocks):
         """A block's sets: its attestations, the sync aggregate, the randao
@@ -2533,50 +2618,32 @@ def phase_chain(torch, K, TP, B, C, reg, launches, card):
         return sum(len(b.message.body.attestations) + 3 for b in blocks)
 
     def step(label, slot, fn, want_calls, want_error=None, moves_head=True):
-        """fn() with the launch counts at 0 and the tracer reset; checks its
-        backend calls' set counts, the launches their pairs imply and the
-        head (moved to the block it returns, or unchanged)."""
+        """fn() as one of the phase's `Calls` steps, with the tracer reset;
+        checks its error, its backend calls' set counts and the head (moved
+        to the block it returns, or unchanged)."""
         chain.slot_clock.set_slot(slot)
         head0 = chain.head_root
         C.tracing.default_tracer().reset()
         sig0 = M.BLOCK_SIGNATURE_TIMES.sum
-        K.reset_launches()
-        t = time.perf_counter()
-        err = None
-        with backend_calls(B, M) as calls:
+
+        def run():
             try:
-                result = fn()
+                return fn(), None
             except C.beacon_chain.BlockError as e:
-                err, result = str(e), None
-        secs = time.perf_counter() - t
-        counts = dict(K.LAUNCHES)
-        need([len(c["sets"]) for c in calls] == want_calls,
-             f"chain: {label}: backend calls of {[len(c['sets']) for c in calls]} "
-             f"sets, want {want_calls}")
+                return None, str(e)
+
+        (result, err), step_calls = calls.step(f"chain: {label}", run, want_calls)
         need(err == want_error, f"chain: {label}: error {err!r}, want {want_error!r}")
-        want = {}
-        for c in calls:
-            add_launches(want, expected_launches(TP, c["pairs"]))
-        check_launches(f"chain {label}", counts, want)
-        add_launches(launches, counts)
-        verdicts = [bool(c["out"]) for c in calls]
-        for c in calls:
-            oracles.append((label, bool(c["out"]), oracle_verdict(host, c["sets"], 37)))
-        sets_of[label] = [c["sets"] for c in calls]
+        sets_of[label] = [c["sets"] for c in step_calls]
         if moves_head:
             need(chain.head_root == result, f"chain: {label}: head did not move")
         else:
             need(chain.head_root == head0, f"chain: {label}: head moved")
         spans = span_ms(C, *CHAIN_SPANS)
-        row = dict(seconds=secs, calls=[len(c["sets"]) for c in calls],
-                   keys=[block_key_count(c["sets"]) for c in calls],
-                   pairs=[c["pairs"] for c in calls], verdicts=verdicts,
-                   signature_ms=(M.BLOCK_SIGNATURE_TIMES.sum - sig0) * 1e3,
-                   spans=spans, launches=counts)
-        log(f"chain: {label}: {secs:.3f} s, backend calls {row['calls']} sets "
-            f"({row['keys']} keys, {row['pairs']} pairs, verdicts {verdicts}); "
-            f"span ms {json.dumps({k: round(v, 1) for k, v in spans.items()})}; "
-            f"launches {counts}; card: {card}")
+        row = calls.rows[f"chain: {label}"]
+        row.update(signature_ms=(M.BLOCK_SIGNATURE_TIMES.sum - sig0) * 1e3, spans=spans)
+        log(f"chain: {label}: span ms "
+            f"{json.dumps({k: round(v, 1) for k, v in spans.items()})}; card: {card}")
         out[label] = row
         return result
 
@@ -2609,12 +2676,12 @@ def phase_chain(torch, K, TP, B, C, reg, launches, card):
         C.bsv.BlockSignatureVerifier.include_all_signatures = include
     C.tracing.default_tracer().reset()
     t = time.perf_counter()
-    with backend_calls(B, M) as calls:
+    with backend_calls(B, M) as import_calls:
         roots = [v.import_into(chain) for v in verified]
     import_s = time.perf_counter() - t
     import_spans = span_ms(C, *CHAIN_SPANS)
-    need(not calls and chain.head_root == roots[-1],
-         f"chain: segment import made {len(calls)} backend calls")
+    need(not import_calls and chain.head_root == roots[-1],
+         f"chain: segment import made {len(import_calls)} backend calls")
     seg_sets, = sets_of["segment"]
     mb = B._marshal_batch(seg_sets, "cuda", seed=1)
     torch.cuda.synchronize()
@@ -2645,22 +2712,10 @@ def phase_chain(torch, K, TP, B, C, reg, launches, card):
          lambda: C.bv.process_gossip_block(chain, bad_gossip), [1],
          want_error="invalid proposer signature", moves_head=False)
 
-    t0 = time.perf_counter()
-    twin = C.beacon_chain.BeaconChain(
-        C.hot_cold.HotColdDB(C.kv.MemoryStore(), preset, spec), reg.genesis, preset, spec)
-    for b in [b31, b32] + segment:
-        twin.slot_clock.set_slot(b.message.slot)
-        twin.process_block(b, strategy=NOV)
-    twin_s = time.perf_counter() - t0
-    need(chain_view(C, chain) == chain_view(C, twin),
-         "chain: head or checkpoints differ from the NO_VERIFICATION twin's")
-    t0 = time.perf_counter()
-    got = [(label, card_v, oracle()) for label, card_v, oracle in oracles]
-    oracle_wait_s = time.perf_counter() - t0
-    for label, card_v, cpu_v in got:
-        need(card_v == cpu_v, f"chain: {label}: card {card_v}, cpu oracle {cpu_v}")
-    need([v for _, v, _ in got] == [True] * 4 + [False] * 2,
-         f"chain: verdicts {[v for _, v, _ in got]}")
+    twin_s = twin_check(C, reg, [b31, b32] + segment, "chain")
+    oracle_wait_s = calls.check_oracle("chain")
+    got = [v for _, v, _ in calls.oracles]
+    need(got == [True] * 4 + [False] * 2, f"chain: verdicts {got}")
     head_slot = chain.head_state.slot
     jc, fc = chain.justified_checkpoint, chain.finalized_checkpoint
     out.update(build_s=build_s, twin_s=twin_s, oracle_wait_s=oracle_wait_s,
@@ -2668,8 +2723,735 @@ def phase_chain(torch, K, TP, B, C, reg, launches, card):
                finalized_epoch=int(fc[0]), seconds=time.perf_counter() - t_phase)
     log(f"chain: head at slot {head_slot}, justified epoch {jc[0]}, finalized epoch "
         f"{fc[0]}, equal to the twin's (built in {twin_s:.1f} s); every verdict "
-        f"{[v for _, v, _ in got]} equal to the cpu oracle's (waited {oracle_wait_s:.1f} "
+        f"{got} equal to the cpu oracle's (waited {oracle_wait_s:.1f} "
         f"s at the end); phase wall {out['seconds']:.1f} s; card: {card}")
+    return out
+
+
+def twin_check(C, reg, blocks, label) -> float:
+    """Import `blocks` (which the registry's chain has just imported) into
+    the twin chain with NO_VERIFICATION, and hold the head, its state root
+    and the checkpoints equal to the chain's. The twin is made on first
+    use over the registry's genesis and is kept for the later phases, so
+    it imports every block the chain imports, in order. Returns the
+    twin's seconds."""
+    preset, spec = reg.preset, reg.spec
+    NOV = C.per_block.BlockSignatureStrategy.NO_VERIFICATION
+    t0 = time.perf_counter()
+    reg.imported.extend(blocks)
+    todo = blocks
+    if reg.twin is None:
+        reg.twin = C.beacon_chain.BeaconChain(
+            C.hot_cold.HotColdDB(C.kv.MemoryStore(), preset, spec), reg.genesis,
+            preset, spec)
+        todo = reg.imported
+    for b in todo:
+        reg.twin.slot_clock.set_slot(b.message.slot)
+        reg.twin.process_block(b, strategy=NOV)
+    need(chain_view(C, reg.chain) == chain_view(C, reg.twin),
+         f"{label}: head or checkpoints differ from the NO_VERIFICATION twin's")
+    return time.perf_counter() - t0
+
+
+class Calls:
+    """The steps of a phase that reach the card: each step runs with the
+    kernels' launch counts at 0 and torch_cuda's dispatch spied on
+    (`backend_calls`); its launches must be what its calls' Miller pairs
+    imply (`expected_launches`), and each call's sets go to the cpu oracle
+    on the host pool, whose verdicts `check_oracle` compares with the
+    card's at the end of the phase."""
+
+    def __init__(self, torch, K, TP, B, C, host, launches, card):
+        self.torch, self.K, self.TP, self.B, self.C = torch, K, TP, B, C
+        self.host, self.launches, self.card = host, launches, card
+        self.oracles, self.rows = [], {}
+
+    def step(self, label, fn, want_calls=None):
+        """fn() as one step; returns (fn's result, the step's calls)."""
+        K, M = self.K, self.C.metrics
+        K.reset_launches()
+        t = time.perf_counter()
+        with backend_calls(self.B, M) as calls:
+            result = fn()
+        secs = time.perf_counter() - t
+        counts = dict(K.LAUNCHES)
+        sizes = [len(c["sets"]) for c in calls]
+        need(calls, f"{label}: no backend call")
+        if want_calls is not None:
+            need(sizes == want_calls, f"{label}: backend calls of {sizes} sets, "
+                 f"want {want_calls}")
+        want = {}
+        for c in calls:
+            add_launches(want, expected_launches(self.TP, c["pairs"]))
+        check_launches(label, counts, want)
+        add_launches(self.launches, counts)
+        verdicts = [bool(c["out"]) for c in calls]
+        for c, v in zip(calls, verdicts):
+            self.oracles.append((label, v, oracle_verdict(self.host, c["sets"], 41)))
+        row = dict(seconds=secs, calls=sizes, keys=[block_key_count(c["sets"]) for c in calls],
+                   pairs=[c["pairs"] for c in calls], verdicts=verdicts, launches=counts)
+        self.rows[label] = row
+        shown = (f"{sizes} sets ({row['keys']} keys, {row['pairs']} pairs, verdicts "
+                 f"{verdicts})" if len(calls) <= 8 else
+                 f"{len(calls)} calls of {sum(sizes)} sets ({sum(row['keys'])} keys, "
+                 f"{verdicts.count(False)} False)")
+        log(f"{label}: {secs:.3f} s, backend calls {shown}; launches {counts}; "
+            f"card: {self.card}")
+        return result, calls
+
+    def replay(self, label, sets, want=True):
+        """The same sets once more through the sync entry point (its
+        bucket's graphs captured by the step): the replayed ms."""
+        self.torch.cuda.synchronize()
+        t = time.perf_counter()
+        ok = self.C.api.verify_signature_sets(sets)
+        ms = (time.perf_counter() - t) * 1e3
+        need(ok is want, f"{label}: replay {ok}, want {want}")
+        self.rows[label]["replayed_ms"] = ms
+        log(f"{label}: replayed {ms:.1f} ms ({len(sets)} sets, "
+            f"{block_key_count(sets)} keys); card: {self.card}")
+        return ms
+
+    def check_oracle(self, phase) -> float:
+        """Every step's card verdicts against the cpu oracle's; returns the
+        seconds spent waiting for the oracle."""
+        t0 = time.perf_counter()
+        got = [(label, v, oracle()) for label, v, oracle in self.oracles]
+        for label, v, cpu in got:
+            need(v == cpu, f"{phase}: {label}: card {v}, cpu oracle {cpu}")
+        return time.perf_counter() - t0
+
+
+# --- the sync phase: sync-committee messages and contributions, the light client
+
+
+SYNC_FORGED_MESSAGES = ((17,), (5, 200, 400))
+SYNC_FORGED_CONTRIBUTIONS = ((5,), (1, 7, 12))
+SYNC_AGGREGATORS = 4  # contributions a subnet (~16 aggregators a subnet on mainnet)
+SYNC_MONITORED = 64  # the validator monitor registers the first 64 positions' senders
+
+
+def sync_committee_members(C, state, preset):
+    """A validator index for each position of the current sync committee,
+    the position's key's holders taken in turn: under the tiled registry
+    a key sits at several positions and each has its own sender, as in
+    the untiled registry."""
+    holders = {}
+    for i, v in enumerate(state.validators):
+        holders.setdefault(bytes(v.pubkey), []).append(i)
+    taken, out = {}, []
+    for pk in state.current_sync_committee.pubkeys:
+        pk = bytes(pk)
+        n = taken.get(pk, 0)
+        taken[pk] = n + 1
+        out.append(holders[pk][n % len(holders[pk])])
+    return out
+
+
+def sync_messages(C, state, preset, spec, secret_of, slot, root, host, forge=()):
+    """[(SyncCommitteeMessage, subnet)] of `slot` over block `root`: one a
+    position of the current sync committee, from `sync_committee_members`;
+    the positions in `forge` sign a wrong root."""
+    T = C.types
+    members = sync_committee_members(C, state, preset)
+    domain = T.get_domain(state, T.DOMAIN_SYNC_COMMITTEE, slot // preset.slots_per_epoch,
+                          preset)
+    signing = T.SigningData(object_root=bytes(root), domain=domain).tree_hash_root()
+    sigs = host.sign([([secret_of(v)], wrong_root(signing) if p in forge else signing)
+                      for p, v in enumerate(members)])
+    size = preset.sync_subcommittee_size
+    return [(T.SyncCommitteeMessage(slot=slot, beacon_block_root=bytes(root),
+                                    validator_index=v, signature=sig), p // size)
+            for p, (v, sig) in enumerate(zip(members, sigs))]
+
+
+def sync_contributions(C, state, preset, spec, secret_of, slot, root, pool, host,
+                       per_subnet=SYNC_AGGREGATORS):
+    """SignedContributionAndProofs of `slot`: in each subnet the first
+    `per_subnet` senders (`sync_committee_members`, in committee order)
+    whose selection proof passes is_sync_committee_aggregator, each
+    wrapping the subnet's contribution over `root` that the message pool
+    `pool` aggregates."""
+    T = C.types
+    t = T.types_for(preset)
+    epoch = slot // preset.slots_per_epoch
+    members = sync_committee_members(C, state, preset)
+    size = preset.sync_subcommittee_size
+    sel_domain = T.get_domain(state, T.DOMAIN_SYNC_COMMITTEE_SELECTION_PROOF, epoch, preset)
+    found = []
+    for subnet in range(preset.sync_committee_subnet_count):
+        sel_root = T.compute_signing_root(C.containers.SyncAggregatorSelectionData(
+            slot=slot, subcommittee_index=subnet), sel_domain)
+        sub, k = members[subnet * size:(subnet + 1) * size], 0
+        for c0 in range(0, size, SELECTION_CHUNK):
+            chunk = sub[c0:c0 + SELECTION_CHUNK]
+            for m, proof in zip(chunk, host.sign([([secret_of(m)], sel_root)
+                                                   for m in chunk])):
+                if k < per_subnet and C.sync.is_sync_committee_aggregator(
+                        proof, preset, spec):
+                    found.append((subnet, m, proof))
+                    k += 1
+            if k == per_subnet:
+                break
+    need(len(found) == per_subnet * preset.sync_committee_subnet_count,
+         f"sync: {len(found)} aggregators")
+    msgs = [t.ContributionAndProof(
+        aggregator_index=m, contribution=pool.get_contribution(t, slot, root, subnet),
+        selection_proof=proof) for subnet, m, proof in found]
+    domain = T.get_domain(state, T.DOMAIN_CONTRIBUTION_AND_PROOF, epoch, preset)
+    sigs = host.sign([([secret_of(m.aggregator_index)], T.compute_signing_root(m, domain))
+                      for m in msgs])
+    return [t.SignedContributionAndProof(message=m, signature=s) for m, s in zip(msgs, sigs)]
+
+
+def forge_contributions(C, state, preset, secret_of, items, positions, host):
+    """A copy of the contributions whose items at `positions` have their
+    contribution-and-proof signed over a wrong root."""
+    T = C.types
+    out, jobs = list(items), []
+    for i in positions:
+        item = type(items[i]).from_ssz_bytes(items[i].as_ssz_bytes())
+        msg = item.message
+        domain = T.get_domain(state, T.DOMAIN_CONTRIBUTION_AND_PROOF,
+                              msg.contribution.slot // preset.slots_per_epoch, preset)
+        jobs.append(([secret_of(msg.aggregator_index)],
+                     wrong_root(T.compute_signing_root(msg, domain))))
+        out[i] = item
+    for i, sig in zip(positions, host.sign(jobs)):
+        out[i].signature = sig
+    return out
+
+
+def process_sync(C, chain, pools, messages=(), contributions=()):
+    """The sync batches through `run_processor`, whose `gossip_sync_message`
+    and `gossip_sync_contribution` handlers submit them
+    (`submit_sync_message_batch`, `submit_contribution_batch`, each one
+    call on the sync lane) and, on completion, put the verified items
+    into `pools` (.messages, .contributions) and the chain's validator
+    monitor, as the node's sync lanes do; fresh dedup caches each call.
+    Returns ({"messages" | "contributions": (verified, rejected)},
+    processor)."""
+    S = C.sync
+    contributors, aggregators = S.ObservedSyncContributors(), S.ObservedSyncAggregators()
+    seen = C.observed.ObservedAggregates()
+
+    def on_messages(_, verified):
+        for v in verified:
+            pools.messages.insert(v)
+            if chain.validator_monitor is not None:
+                chain.validator_monitor.on_sync_committee_message(
+                    int(v.message.validator_index), int(v.message.slot))
+
+    def on_contributions(_, verified):
+        for v in verified:
+            pools.contributions.insert(v)
+
+    return run_processor(C, "sync", {
+        "gossip_sync_message": (
+            "messages",
+            lambda items: S.submit_sync_message_batch(chain, items, contributors),
+            messages, on_messages),
+        "gossip_sync_contribution": (
+            "contributions",
+            lambda items: S.submit_contribution_batch(chain, items, aggregators, seen),
+            contributions, on_contributions),
+    })
+
+
+def sync_pools(C, preset):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(messages=C.sync.SyncMessagePool(preset),
+                           contributions=C.sync.SyncContributionPool(preset))
+
+
+def seed_light_client(C, store, committee, pubkey_cache):
+    """Fill the store's parse cache as its own parse fills it: untagged
+    keys (a light client has no validator table, so its verify packs the
+    keys' limbs on the host) at the points of the chain's pubkey cache (a
+    key costs ~23 ms of host Python to decompress; the points are the
+    same)."""
+    store._parsed_committees[committee.tree_hash_root()] = [
+        C.api.PublicKey(k.point, k.to_bytes(), subgroup_checked=True)
+        for k in map(pubkey_cache.resolve, map(bytes, committee.pubkeys))]
+
+
+def item_root(item):
+    """A gossip item's root: a sync message's (it travels with its subnet)
+    or the item's own."""
+    return (item[0] if isinstance(item, tuple) else item).tree_hash_root()
+
+
+def forged_run(C, calls, label, run, items, bad, name):
+    """`run(items)` (a processor pass over a batch with forgeries at `bad`)
+    as a step: exactly those items rejected ("invalid signature"), every
+    other verified, the bisection within its bound."""
+    M = C.metrics
+    calls0 = M.BLS_BISECTION_CALLS.value
+    (res, _), _ = calls.step(label, lambda: run(items))
+    extra = int(M.BLS_BISECTION_CALLS.value - calls0)
+    verified, rejected = res[name]
+    want_bad = {item_root(items[i]) for i in bad}
+    got_rejected = {item_root(x): why for x, why in rejected}
+    need(got_rejected == {r: "invalid signature" for r in want_bad},
+         f"{label}: rejected {got_rejected}")
+    need(len(verified) == len(items) - len(bad), f"{label}: {len(verified)} verified")
+    limit = bisection_bound(len(bad), len(items))
+    need(extra <= limit, f"{label}: {extra} bisection calls, bound {limit}")
+    calls.rows[label].update(bisection_calls=extra, bound=limit)
+    log(f"{label}: exactly the forgeries at {list(bad)} rejected, {len(verified)} "
+        f"verified; {extra} bisection calls (bound {limit})")
+    return res[name]
+
+
+def phase_sync(torch, K, TP, B, C, reg, launches, card):
+    """The sync committee's traffic on the card over the chain phase's
+    chain: one slot's messages and contributions through the processor,
+    with forgeries; the next block with the contribution pool's sync
+    aggregate; a light client following the chain; the validator monitor.
+    Every call against the cpu oracle, the head against the twin chain."""
+    preset, spec, host, chain = reg.preset, reg.spec, reg.host, reg.chain
+    T, PS, L = C.types, C.per_slot, C.light
+    t = T.types_for(preset)
+    t_phase = time.perf_counter()
+    C.tracing.configure(clock=_WallClock())
+    calls = Calls(torch, K, TP, B, C, host, launches, card)
+    state, head = chain.head_state, chain.head_root
+    slot = int(state.slot)
+    chain.slot_clock.set_slot(slot)
+    members = sync_committee_members(C, state, preset)
+    monitor = C.monitor.ValidatorMonitor()
+    watched = set(members[:SYNC_MONITORED])
+    for v in sorted(watched):
+        monitor.register_validator(v)
+    chain.validator_monitor = monitor
+    out = {}
+
+    t0 = time.perf_counter()
+    msgs = {(): sync_messages(C, state, preset, spec, reg.secret_of, slot, head, host)}
+    for bad in SYNC_FORGED_MESSAGES:
+        msgs[bad] = sync_messages(C, state, preset, spec, reg.secret_of, slot, head, host,
+                                  forge=bad)
+    sign_s = time.perf_counter() - t0
+    n = len(msgs[()])
+    pools = sync_pools(C, preset)
+    (res, _), step_calls = calls.step(
+        "sync: messages", lambda: process_sync(C, chain, pools, messages=msgs[()]),
+        want_calls=[n])
+    verified, rejected = res["messages"]
+    need(len(verified) == n and not rejected,
+         f"sync: {len(verified)} of {n} messages verified, rejected {rejected[:3]}")
+    message_sets = step_calls[0]["sets"]
+    need(len({bytes(s.message) for s in message_sets}) == 1,
+         "sync: the messages' sets sign more than one root")
+    calls.replay("sync: messages", message_sets)
+    seen = sum(1 for v in verified if int(v.message.validator_index) in watched)
+
+    t0 = time.perf_counter()
+    contribs = {(): sync_contributions(C, state, preset, spec, reg.secret_of, slot, head,
+                                       pools.messages, host)}
+    for bad in SYNC_FORGED_CONTRIBUTIONS:
+        contribs[bad] = forge_contributions(C, state, preset, reg.secret_of, contribs[()],
+                                            bad, host)
+    sign_s += time.perf_counter() - t0
+    m = len(contribs[()])
+    (res, _), step_calls = calls.step(
+        "sync: contributions", lambda: process_sync(C, chain, pools,
+                                                   contributions=contribs[()]),
+        want_calls=[3 * m])
+    verified, rejected = res["contributions"]
+    need(len(verified) == m and not rejected,
+         f"sync: {len(verified)} of {m} contributions verified, rejected {rejected[:3]}")
+    calls.replay("sync: contributions", step_calls[0]["sets"])
+
+    # does a submit wait on the stream after the table and graphs phases?
+    _, _, spin_ms = spin_timed(torch, lambda: None)
+    submits = {}
+    for spin in (False, True, False, True):
+        fut, ms, _ = spin_timed(torch, lambda: C.api.verify_signature_sets_async(
+            message_sets, seed=72, lane="sync", slot=slot), spin)
+        need(fut.result() is True,
+             "sync: the messages' batch rejected on the busy-card probe")
+        submits.setdefault("spin" if spin else "idle", []).append(ms)
+    waits = min(submits["spin"]) > spin_ms / 2
+    out["busy_card"] = dict(spin_ms=spin_ms, submit_ms=submits, waits_on_stream=waits)
+    log(f"sync: busy-card probe: a {n}-set sync-lane submit took "
+        f"{[round(x, 1) for x in submits['idle']]} ms on an idle card and "
+        f"{[round(x, 1) for x in submits['spin']]} ms behind a {spin_ms:.1f} ms spin: "
+        f"{'it WAITS on the stream' if waits else 'host work, no wait on the stream'}; "
+        f"card: {card}")
+
+    for bad in SYNC_FORGED_MESSAGES:
+        verified, _ = forged_run(
+            C, calls, f"sync: messages with {len(bad)} forged", lambda items: (
+                process_sync(C, chain, sync_pools(C, preset), messages=items)),
+            msgs[bad], bad, "messages")
+        seen += sum(1 for v in verified if int(v.message.validator_index) in watched)
+    for bad in SYNC_FORGED_CONTRIBUTIONS:
+        forged_run(C, calls, f"sync: contributions with {len(bad)} forged", lambda items: (
+            process_sync(C, chain, sync_pools(C, preset), contributions=items)),
+            contribs[bad], bad, "contributions")
+
+    # the next block carries the contribution pool's sync aggregate
+    aggregate = pools.contributions.get_sync_aggregate(t, slot, head)
+    need(all(aggregate.sync_committee_bits), "sync: the sync aggregate is not full")
+    pre = PS.process_slots(PS.clone_state(state), slot + 1, preset, spec)
+    block, _ = produce_block(C, pre, preset, spec, reg.secret_of, host,
+                             sync_aggregate=aggregate)
+    need(block.message.body.sync_aggregate.as_ssz_bytes() == aggregate.as_ssz_bytes(),
+         "sync: the block does not carry the pool's sync aggregate")
+
+    # a light client bootstrapped at the genesis block follows the update
+    # that this aggregate signs (the head at `slot`)
+    boot = L.light_client_bootstrap(reg.genesis, preset)
+    trusted = chain.genesis_block_root
+    store = L.LightClientStore(trusted, boot, preset, spec,
+                               bytes(state.genesis_validators_root))
+    seed_light_client(C, store, boot.current_sync_committee, chain.pubkey_cache)
+    update = L.light_client_optimistic_update(state, aggregate, slot + 1, preset)
+    need(update.attested_header.tree_hash_root() == head,
+         "sync: the update's attested header is not the head")
+    domain = T.get_domain(state, T.DOMAIN_SYNC_COMMITTEE, slot // preset.slots_per_epoch,
+                          preset)
+    signing = T.SigningData(object_root=head, domain=domain).tree_hash_root()
+    honest, forged_one = host.sign([([reg.secret_of(v) for v in members[1:]], signing),
+                                    ([reg.secret_of(members[0])], wrong_root(signing))])
+    forged = type(update).from_ssz_bytes(update.as_ssz_bytes())
+    forged.sync_aggregate.sync_committee_signature = C.api.AggregateSignature.aggregate(
+        [C.api.Signature.from_bytes(honest), C.api.Signature.from_bytes(forged_one)]
+    ).to_bytes()
+
+    def store_view():
+        return (store.finalized_header.tree_hash_root(),
+                store.optimistic_header.tree_hash_root(),
+                store.previous_max_active_participants,
+                store.current_max_active_participants)
+
+    need(store_view() == (trusted, trusted, 0, 0), f"sync: fresh store {store_view()}")
+    _, lc_calls = calls.step("sync: light-client update",
+                             lambda: store.process_optimistic_update(update), want_calls=[1])
+    calls.replay("sync: light-client update", lc_calls[0]["sets"])
+    lc_keys = block_key_count(lc_calls[0]["sets"])
+    need(B._common_table(lc_calls[0]["sets"]) is None,
+         "sync: the light client's keys went down the table-gather route")
+    after = store_view()
+    need(after == (trusted, head, 0, preset.sync_committee_size),
+         f"sync: light-client store {after}")
+
+    def rejected_update():
+        try:
+            store.process_optimistic_update(forged)
+        except L.LightClientError as e:
+            return str(e)
+        return None
+
+    why, _ = calls.step("sync: light-client forged update", rejected_update,
+                        want_calls=[1])
+    need(why == "sync aggregate signature invalid" and store_view() == after,
+         f"sync: forged light-client update: {why!r}, store {store_view()}")
+    log(f"sync: light client bootstrapped at the genesis block, optimistic header "
+        f"moved to the head at slot {slot} ({lc_keys} keys host-packed, no "
+        f"table); the "
+        f"update with one forged signature rejected, store unchanged; card: {card}")
+
+    chain.slot_clock.set_slot(slot + 1)
+    root, import_calls = calls.step(
+        "sync: block import", lambda: chain.process_block(block),
+        want_calls=[len(block.message.body.attestations) + 3])
+    calls.replay("sync: block import", import_calls[0]["sets"])
+    need(chain.head_root == root == block.message.tree_hash_root(),
+         "sync: the block with the pool's sync aggregate is not the head")
+    twin_s = twin_check(C, reg, [block], "sync")
+
+    got = {v: monitor.validators[v].sync_signatures for v in watched}
+    need(sum(got.values()) == seen,
+         f"sync: the validator monitor counted {sum(got.values())} messages, want {seen}")
+    oracle_wait_s = calls.check_oracle("sync")
+    chain.validator_monitor = None
+    out.update(calls.rows, messages=n, contributions=m, sign_s=sign_s, twin_s=twin_s,
+               monitor=dict(registered=len(watched), sync_messages_seen=seen),
+               oracle_wait_s=oracle_wait_s, head_slot=int(chain.head_state.slot),
+               seconds=time.perf_counter() - t_phase)
+    log(f"sync: {n} messages and {m} contributions verified, every verdict equal to "
+        f"the cpu oracle's (waited {oracle_wait_s:.1f} s); the validator monitor saw "
+        f"{seen} messages of its {len(watched)} validators; head at slot "
+        f"{out['head_slot']} equal to the twin's; host sign {sign_s:.1f} s; phase wall "
+        f"{out['seconds']:.1f} s; card: {card}")
+    return out
+
+
+# --- the pool phase: the naive and operation pools, speculation, reprocessing
+
+
+POOL_BATCH = 64  # the processor's gossip batch: the warmed bucket (64, 4, 4)
+POOL_AGGREGATES = 32  # gossip aggregates, the attestations phase's count
+SPECULATE_FAMILIES = (
+    "SPECULATE_PRECOMPUTE_ENTRIES", "SPECULATE_PRECOMPUTE_HITS",
+    "SPECULATE_PRECOMPUTE_CORRECTIONS", "SPECULATE_PRECOMPUTE_MISSES",
+    "SPECULATE_PRECOMPUTE_INVALIDATIONS", "SPECULATE_PREVERIFIED", "SPECULATE_CONFIRMS",
+    "SPECULATE_CONFIRM_MISSES", "SPECULATE_MISMATCHES", "SPECULATE_IDLE_RUNS")
+
+
+def speculated_aggregates(C, chain, state, preset, spec, secret_of, slot, host, source):
+    """One SignedAggregateAndProof for each committee of `slot`: all bits
+    set, over the AttestationData the chain produces for it, signed as the
+    speculation's `source` signs it (so its arrival can be confirmed by
+    lookup); the aggregator is the committee's first member whose
+    selection proof selects it."""
+    T = C.types
+    t = T.types_for(preset)
+    epoch = slot // preset.slots_per_epoch
+    committees = C.context.ConsensusContext(preset, spec).committee_cache(
+        state, epoch).get_all_committees_at_slot(slot)
+    sel_root = T.SigningData(
+        object_root=C.ssz.uint64.hash_tree_root(slot),
+        domain=T.get_domain(state, T.DOMAIN_SELECTION_PROOF, epoch, preset),
+    ).tree_hash_root()
+    msgs = []
+    for index, committee in enumerate(committees):
+        data = chain.produce_attestation_data(slot, index)
+        agg = None
+        for c0 in range(0, len(committee), SELECTION_CHUNK):
+            chunk = committee[c0:c0 + SELECTION_CHUNK]
+            for m, proof in zip(chunk, host.sign([([secret_of(x)], sel_root)
+                                                   for x in chunk])):
+                if agg is None and C.att.is_aggregator(len(committee), proof, spec):
+                    agg = (m, proof)
+            if agg is not None:
+                break
+        need(agg is not None, f"pool: no aggregator in committee {index} of slot {slot}")
+        att = t.Attestation(aggregation_bits=tuple(True for _ in committee), data=data,
+                            signature=source(data, committee,
+                                             attester_root(C, state, data, preset)))
+        msgs.append(t.AggregateAndProof(aggregator_index=agg[0], aggregate=att,
+                                        selection_proof=agg[1]))
+    domain = T.get_domain(state, T.DOMAIN_AGGREGATE_AND_PROOF, epoch, preset)
+    sigs = host.sign([([secret_of(m.aggregator_index)], T.compute_signing_root(m, domain))
+                      for m in msgs])
+    return [t.SignedAggregateAndProof(message=m, signature=s) for m, s in zip(msgs, sigs)]
+
+
+def affine(point):
+    return (point.x.n, point.y.n) if not point.inf else None
+
+
+def phase_pool(torch, K, TP, B, C, reg, launches, card):
+    """One slot's attestations on the card over the chain's head: its
+    committees' unaggregated attestations through the processor into the
+    naive pool, its aggregates and gossip aggregates into the operation
+    pool; the gossip aggregates with speculation off and on (attached to
+    the chain: committee aggregates on the card, corrections there); the
+    idle pass and confirm-by-lookup; the block the pool packs; an
+    aggregate that waits in the reprocess queue for that block. Every
+    call against the cpu oracle, the head against the twin chain."""
+    preset, spec, host, chain = reg.preset, reg.spec, reg.host, reg.chain
+    T, PS, M = C.types, C.per_slot, C.metrics
+    t = T.types_for(preset)
+    spe = preset.slots_per_epoch
+    t_phase = time.perf_counter()
+    C.tracing.configure(clock=_WallClock())
+    calls = Calls(torch, K, TP, B, C, host, launches, card)
+    state, head = chain.head_state, chain.head_root
+    slot = int(state.slot)
+    chain.slot_clock.set_slot(slot)
+    naive, ops = C.pool.NaiveAggregationPool(), C.pool.OperationPool(preset, spec)
+    out = {}
+
+    def sink(name, verified):
+        for v in verified:
+            if name == "unaggregated":
+                naive.insert(v.attestation)
+                ops.insert_attestation(v.attestation)
+            else:
+                ops.insert_attestation(v.signed_aggregate.message.aggregate)
+
+    t0 = time.perf_counter()
+    ahead = PS.process_slots(PS.clone_state(state), slot + 1, preset, spec)
+    committees = C.context.ConsensusContext(preset, spec).committee_cache(
+        state, slot // spe).get_all_committees_at_slot(slot)
+    n = sum(len(c) for c in committees)
+    unagg = gossip_unaggregated(C, ahead, preset, spec, reg.secret_of, slot, n, host)
+    aggs = gossip_aggregates(C, state, preset, spec, reg.secret_of, POOL_AGGREGATES, host)
+    sign_s = time.perf_counter() - t0
+
+    (res, _), _ = calls.step(
+        "pool: unaggregated", lambda: process_gossip(
+            C, chain, unagg, sink=sink, max_batch=POOL_BATCH),
+        want_calls=[min(POOL_BATCH, n - i) for i in range(0, n, POOL_BATCH)])
+    got, rejected = verdicts(unagg, res["unaggregated"])
+    need(len(got) == n and not rejected,
+         f"pool: {len(got)} of {n} unaggregated verified, rejected {rejected}")
+    datas = {a.data.tree_hash_root(): a.data for a in unagg}
+    for data in datas.values():
+        agg = naive.get_aggregate(t, data)
+        need(agg is not None and all(agg.aggregation_bits),
+             "pool: the naive pool's aggregate misses committee members")
+        ops.insert_attestation(agg)
+    log(f"pool: {n} unaggregated attestations of slot {slot} ({len(committees)} "
+        f"committees) in batches of {POOL_BATCH} into the naive pool: {len(datas)} "
+        f"full aggregates; card: {card}")
+
+    (res_off, _), off_calls = calls.step(
+        "pool: aggregates, speculation off", lambda: process_gossip(
+            C, chain, aggregates=aggs, sink=sink), want_calls=[3 * len(aggs)])
+
+    def source(data, members, root):
+        return host.sign([([reg.secret_of(v) for v in members], root)])[0]
+
+    idle = C.processor.BeaconProcessor(handlers={})
+    t0 = time.perf_counter()
+    sub = C.speculate.attach_speculation(chain, idle, signature_source=source,
+                                         device_correction=True)
+    attach_s = time.perf_counter() - t0
+    entries = len(sub.precompute)
+    table = B.committee_table()
+    need(entries == len(table) and table.device_table().device.type == "cuda",
+         f"pool: {entries} precompute entries, {len(table)} rows in the committee table")
+    log(f"pool: attach_speculation refreshed {entries} committee entries of "
+        f"{len(committees[0])} keys in {attach_s:.1f} s, parked on the card by "
+        f"set_committee_aggregates; card: {card}")
+    try:
+        calls.step("pool: idle speculation", idle.run_until_idle, want_calls=[1] * len(
+            committees))
+        need(sub.verifier.stats["preverified"] == len(committees),
+             f"pool: idle pass pre-verified {sub.verifier.stats['preverified']}")
+
+        corrections = []
+        correct = B.correct_aggregate_device
+
+        def timed_correct(*a, **kw):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            point = correct(*a, **kw)
+            corrections.append((time.perf_counter() - t1) * 1e3)
+            return point
+
+        B.correct_aggregate_device = timed_correct
+        try:
+            (res_on, _), on_calls = calls.step(
+                "pool: aggregates, speculation on", lambda: process_gossip(
+                    C, chain, aggregates=aggs, sink=sink), want_calls=[3 * len(aggs)])
+        finally:
+            B.correct_aggregate_device = correct
+        need(verdicts(aggs, res_on["aggregate"]) == verdicts(aggs, res_off["aggregate"]),
+             "pool: verdicts differ with speculation on and off")
+        got, rejected = verdicts(aggs, res_on["aggregate"])
+        need(len(got) == len(aggs) and not rejected, f"pool: aggregates rejected {rejected}")
+        keys_off = block_key_count(off_calls[0]["sets"])
+        keys_on = block_key_count(on_calls[0]["sets"])
+        need(keys_on < keys_off, f"pool: {keys_on} keys with speculation, {keys_off} without")
+        checked = 0
+        for entry in (e for es in sub.precompute._epochs.values() for e in es.values()):
+            for bits, pk in entry.corrections.items():
+                host_point = entry.full_point
+                for m_pk, b in zip(entry.member_pks, bits):
+                    if not b:
+                        host_point = host_point + (-m_pk.point)
+                need(affine(pk.point) == affine(host_point),
+                     f"pool: corrected aggregate of committee {entry.index} at slot "
+                     f"{entry.slot} differs from the host's")
+                checked += 1
+        need(corrections and checked == len(corrections),
+             f"pool: {len(corrections)} device corrections, {checked} checked")
+        # one more correction alone, replayed: its own launches
+        entry = next(e for es in sub.precompute._epochs.values() for e in es.values()
+                     if e.corrections)
+        bits = next(iter(entry.corrections))
+        absent = [m_pk for m_pk, b in zip(entry.member_pks, bits) if not b]
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        point = B.correct_aggregate_device(entry.full_pk, absent)
+        correction_ms = (time.perf_counter() - t0) * 1e3
+        correction_launches = dict(K.LAUNCHES)
+        need(affine(point) == affine(entry.corrections[bits].point),
+             "pool: the replayed correction differs")
+        out["correction"] = dict(absent=len(absent), replayed_ms=correction_ms,
+                                 launches=correction_launches)
+        log(f"pool: one correction of {len(absent)} absent members replayed in "
+            f"{correction_ms:.2f} ms, launches {correction_launches}; card: {card}")
+        log(f"pool: {len(aggs)} gossip aggregates with speculation on: verdicts equal to "
+            f"off, keys {keys_on} against {keys_off}; {len(corrections)} corrections on "
+            f"the card ({min(corrections):.2f}-{max(corrections):.2f} ms each), each equal "
+            f"to the host's full - absent; card: {card}")
+        out["correction_ms"] = corrections
+
+        chain.slot_clock.set_slot(slot + 1)
+        confirmable = speculated_aggregates(C, chain, state, preset, spec, reg.secret_of,
+                                            slot + 1, host, source)
+        confirms0 = sub.verifier.stats["confirms"]
+        (res, _), _ = calls.step(
+            "pool: confirmed by lookup", lambda: process_gossip(
+                C, chain, aggregates=confirmable, sink=sink),
+            want_calls=[2 * len(confirmable)])
+        got, rejected = verdicts(confirmable, res["aggregate"])
+        need(len(got) == len(confirmable) and not rejected,
+             f"pool: confirmable aggregates rejected {rejected}")
+        confirmed = sub.verifier.stats["confirms"] - confirms0
+        need(confirmed == len(confirmable), f"pool: {confirmed} confirmed by lookup")
+        violations = C.adversary.audit(["speculation-poisoning"])
+        need(not violations, f"pool: speculation-poisoning audit: {violations}")
+
+        pre = PS.process_slots(PS.clone_state(state), slot + 1, preset, spec)
+        t0 = time.perf_counter()
+        packed = ops.get_attestations(pre)
+        pack_ms = (time.perf_counter() - t0) * 1e3
+        need(len(datas) <= len(packed) <= preset.max_attestations,
+             f"pool: {len(packed)} attestations packed")
+        block, post = produce_block(C, pre, preset, spec, reg.secret_of, host,
+                                    attestations=packed)
+        root = block.message.tree_hash_root()
+        covered = len({v for a in packed for v in C.context.ConsensusContext(
+            preset, spec).get_indexed_attestation(pre, a).attesting_indices})
+        log(f"pool: get_attestations packed {len(packed)} of the pool's "
+            f"{ops.num_attestations()} attestations in {pack_ms:.1f} ms, covering "
+            f"{covered} validators; card: {card}")
+
+        # an aggregate that arrives before its block waits in the reprocess queue
+        ahead2 = PS.process_slots(PS.clone_state(post), slot + 2, preset, spec)
+        late = gossip_aggregates(C, ahead2, preset, spec, reg.secret_of, 1, host)
+        need(bytes(late[0].message.aggregate.data.beacon_block_root) == root,
+             "pool: the late aggregate does not name the packed block")
+        queue = C.reprocess.ReprocessQueue(delay_s=float(spec.seconds_per_slot),
+                                           clock=lambda: float(chain.current_slot))
+        res, _ = process_gossip(C, chain, aggregates=late)
+        need(res["aggregate"][1] == [(late[0], "unknown head block")],
+             f"pool: late aggregate {res['aggregate'][1]}")
+        need(queue.defer("gossip_aggregate", late[0], root, late[0].tree_hash_root()),
+             "pool: the reprocess queue refused the late aggregate")
+
+        got_root, import_calls = calls.step(
+            "pool: packed block import", lambda: chain.process_block(block),
+            want_calls=[len(packed) + 3])
+        need(chain.head_root == got_root == root, "pool: the packed block is not the head")
+        calls.replay("pool: packed block import", import_calls[0]["sets"])
+        released = queue.on_block_imported(root)
+        need([q for q, _ in released] == ["gossip_aggregate"] and len(queue) == 0,
+             f"pool: reprocess released {released}")
+        (res, _), _ = calls.step(
+            "pool: reprocessed aggregate", lambda: process_gossip(
+                C, chain, aggregates=[item for _, item in released]))
+        got, rejected = verdicts(late, res["aggregate"])
+        need(len(got) == 1 and not rejected, f"pool: reprocessed aggregate {rejected}")
+        counts = {name: getattr(M, name).value for name in SPECULATE_FAMILIES}
+        stats = dict(precompute=dict(sub.precompute.stats),
+                     verifier=dict(sub.verifier.stats))
+    finally:
+        sub.detach()
+    twin_s = twin_check(C, reg, [block], "pool")
+    oracle_wait_s = calls.check_oracle("pool")
+    out.update(calls.rows, unaggregated=n, aggregates=len(aggs), entries=entries,
+               attach_s=attach_s, keys_off=keys_off, keys_on=keys_on,
+               packed=len(packed), covered=covered, pack_ms=pack_ms,
+               speculate=counts, speculate_stats=stats, reprocess=dict(queue.stats),
+               sign_s=sign_s, twin_s=twin_s, oracle_wait_s=oracle_wait_s,
+               head_slot=int(chain.head_state.slot),
+               seconds=time.perf_counter() - t_phase)
+    log(f"pool: speculation counts {json.dumps(counts)}; stats {json.dumps(stats)}; "
+        f"reprocess {json.dumps(queue.stats)}")
+    log(f"pool: every verdict equal to the cpu oracle's (waited {oracle_wait_s:.1f} s); "
+        f"head at slot {out['head_slot']} equal to the twin's; host sign {sign_s:.1f} s; "
+        f"phase wall {out['seconds']:.1f} s; card: {card}")
     return out
 
 
@@ -2683,6 +3465,9 @@ def main(argv=None) -> int:
     for p in phases:
         if p not in ALL_PHASES + CHILD_PHASES:
             raise SystemExit(f"unknown phase {p!r}")
+    if any(p in phases for p in ("sync", "pool")) and "chain" not in phases:
+        raise SystemExit("the sync and pool phases go on from the chain phase's chain: "
+                         "add chain to --phases")
 
     import torch
 
@@ -2774,7 +3559,7 @@ def main(argv=None) -> int:
     if "adversary" in phases:
         api.set_backend("torch_cuda")
         paths["adversary"] = phase_adversary(torch, K, TP, B, api, launches, card)
-    if any(p in phases for p in ("block", "attestations", "chain")):
+    if any(p in phases for p in ("block", "attestations", "chain", "sync", "pool")):
         api.set_backend("torch_cuda")
         C = consensus_modules()
         with host_pool() as pool:
@@ -2787,6 +3572,10 @@ def main(argv=None) -> int:
                     torch, K, B, C, reg, launches, card)
             if "chain" in phases:
                 paths["chain"] = phase_chain(torch, K, TP, B, C, reg, launches, card)
+            if "sync" in phases:
+                paths["sync"] = phase_sync(torch, K, TP, B, C, reg, launches, card)
+            if "pool" in phases:
+                paths["pool"] = phase_pool(torch, K, TP, B, C, reg, launches, card)
 
     if results:
         line = []

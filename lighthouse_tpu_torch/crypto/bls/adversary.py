@@ -35,11 +35,9 @@ combination verification most easily gets wrong:
   then `_stage_group`) rejects; ``weakened_verify_group_then_weight``
   shows the bug being caught.
 * **speculation-poisoning** -- valid-but-different signatures and stale
-  shuffling keys replayed at the confirm-by-lookup seam of speculate/,
-  which the port does not have yet: ``speculation_poison_material``
-  builds the material, and ``audit`` refuses the family
-  (NotImplementedError) rather than report clean for a seam it cannot
-  reach.
+  shuffling keys replayed at the confirm-by-lookup seam of speculate/
+  (``SpeculativeVerifier.confirm``): ``speculation_poison_material``
+  builds the material, and ``audit`` drives the seam with it.
 
 Everything is seeded and deterministic: ``random.Random(f"{family}:{
 seed}")`` drives each constructor, so a probe batch is a pure function
@@ -394,6 +392,56 @@ def speculation_poison_material(seed: int = 0) -> dict:
     }
 
 
+def _audit_speculation(seed: int) -> list[str]:
+    """Drive SpeculativeVerifier.confirm with poisoned material: a
+    valid-but-different signature must MISMATCH (never confirm) and a
+    stale shuffling key must MISS; the honest byte-identical aggregate
+    must confirm, or the probe is vacuous."""
+    from ...speculate.scheduler import SpeculativeVerifier
+
+    mat = speculation_poison_material(seed)
+    sv = SpeculativeVerifier(chain=None, precompute=None)
+    key = (
+        bytes(mat["message"]),
+        tuple(mat["bits"]),
+        int(mat["slot"]),
+        int(mat["index"]),
+        mat["shuffling_key"],
+    )
+    sv._memo[key] = mat["honest_sig_bytes"]
+    violations = []
+    if sv.confirm(
+        mat["message"], mat["bits"], mat["slot"], mat["index"],
+        mat["shuffling_key"], mat["different_valid_sig_bytes"],
+    ):
+        violations.append(
+            "speculation-poisoning: valid-but-different signature CONFIRMED "
+            "by lookup"
+        )
+    if sv.stats["mismatches"] < 1:
+        violations.append(
+            "speculation-poisoning: different-signature replay was not "
+            "counted as a mismatch"
+        )
+    if sv.confirm(
+        mat["message"], mat["bits"], mat["slot"], mat["index"],
+        mat["stale_shuffling_key"], mat["honest_sig_bytes"],
+    ):
+        violations.append(
+            "speculation-poisoning: stale-shuffling aggregate CONFIRMED by "
+            "lookup"
+        )
+    if not sv.confirm(
+        mat["message"], mat["bits"], mat["slot"], mat["index"],
+        mat["shuffling_key"], mat["honest_sig_bytes"],
+    ):
+        violations.append(
+            "speculation-poisoning: the honest byte-identical aggregate "
+            "failed to confirm (seam broken, probe vacuous)"
+        )
+    return violations
+
+
 # -- the differential rejection matrix ----------------------------------------
 
 
@@ -479,21 +527,15 @@ def rejection_matrix(sets, seed: int = 0, paths=PATHS, device=None) -> dict:
 
 
 def audit(families, seed: int = 0, quick: bool = False) -> list[str]:
-    """Run the named probe families against the cpu oracle; returns
-    violation strings, empty == sound. `quick` probes only each family's
-    first batch (one pairing product per family). The speculation-
-    poisoning family raises NotImplementedError: its confirm-by-lookup
-    seam (speculate/scheduler.py) is not in the port yet, and an audit
-    that cannot reach a seam must not report it clean."""
-    families = list(families)
-    if "speculation-poisoning" in families:
-        raise NotImplementedError(
-            "speculation-poisoning audit: the confirm-by-lookup seam "
-            "(speculate/scheduler.py) waits for the slice that ports "
-            "speculate/ (ROADMAP.md)"
-        )
+    """Run the named probe families against the cpu oracle (and the
+    speculation confirm seam); returns violation strings, empty == sound.
+    `quick` probes only each family's first batch (one pairing product per
+    family)."""
     violations: list[str] = []
     for family in families:
+        if family == "speculation-poisoning":
+            violations.extend(_audit_speculation(seed))
+            continue
         ctor = BATCHES.get(family)
         if ctor is None:
             violations.append(f"{family}: unknown probe family")

@@ -6,14 +6,14 @@ degradation, the pipeline, message aggregation, the scheduler, and the
 device telemetry of backends/torch_cuda.py; and the families that the
 gossip attestation batches (chain/attestation_verification.py, with its
 bisection), the beacon processor, block import (chain/beacon_chain.py,
-chain/block_verification.py) and the store's journal (store/kv.py) feed.
+chain/block_verification.py), the store's journal (store/kv.py),
+speculative verification (speculate/) and the validator monitor
+(chain/validator_monitor.py) feed.
 
 Exported names, types and help texts are the JAX package's, so the two
 registries compare line by line. The rest of the chain family (the
-observed-delay and equivocation families, which network/ feeds), the
-network family and the speculation family wait for the modules that feed
-them; of the last, only the committee table's size gauge is here, which
-torch_cuda feeds."""
+observed-delay and equivocation families, which network/ feeds) and the
+network family wait for the modules that feed them."""
 
 from __future__ import annotations
 
@@ -470,6 +470,61 @@ TPU_PUBKEY_GATHER_BATCHES = REGISTRY.counter(
     "Verification batches whose pubkeys were gathered from the "
     "device-resident table by validator index",
 )
+# -- speculative verification (speculate/: committee precompute and
+# idle-time next-slot pre-verification; the committee table's size,
+# which torch_cuda feeds) ----------------------------------------------
+
+SPECULATE_PRECOMPUTE_ENTRIES = REGISTRY.gauge(
+    "speculate_precompute_entries",
+    "Per-(slot, committee) aggregate-pubkey precompute entries currently "
+    "cached (keyed on the epoch's shuffling seed)",
+)
+SPECULATE_PRECOMPUTE_HITS = REGISTRY.counter(
+    "speculate_precompute_full_hits_total",
+    "Indexed-attestation sets whose aggregation bits matched a cached "
+    "full-committee aggregate exactly (zero pubkey aggregation on the "
+    "critical path)",
+)
+SPECULATE_PRECOMPUTE_CORRECTIONS = REGISTRY.counter(
+    "speculate_precompute_corrections_total",
+    "Partial-participation sets served by incremental correction "
+    "(cached full aggregate minus absent members)",
+)
+SPECULATE_PRECOMPUTE_MISSES = REGISTRY.counter(
+    "speculate_precompute_misses_total",
+    "Indexed-attestation sets that fell through to normal per-set pubkey "
+    "aggregation (no entry, stale shuffling key, or member mismatch)",
+)
+SPECULATE_PRECOMPUTE_INVALIDATIONS = REGISTRY.counter(
+    "speculate_precompute_invalidations_total",
+    "Precompute entries dropped because a reorg changed the epoch's "
+    "shuffling seed (same-shuffling reorgs keep entries)",
+)
+SPECULATE_PREVERIFIED = REGISTRY.counter(
+    "speculate_preverified_total",
+    "Expected next-slot aggregates pre-verified during idle device time "
+    "and memoized for confirm-on-arrival",
+)
+SPECULATE_CONFIRMS = REGISTRY.counter(
+    "speculate_confirm_hits_total",
+    "Arriving aggregates confirmed by speculation-memo lookup instead of "
+    "pairing on the critical path",
+)
+SPECULATE_CONFIRM_MISSES = REGISTRY.counter(
+    "speculate_confirm_misses_total",
+    "Arriving aggregates with no matching speculation memo (fell through "
+    "to the normal verified path)",
+)
+SPECULATE_MISMATCHES = REGISTRY.counter(
+    "speculate_mismatches_total",
+    "Arriving aggregates whose memo key matched but whose signature bytes "
+    "differed from the pre-verified one (never trusted; full verify)",
+)
+SPECULATE_IDLE_RUNS = REGISTRY.counter(
+    "speculate_idle_runs_total",
+    "Idle-time speculation passes actually run by the processor (gated "
+    "on queue-wait p95 and in-flight depth)",
+)
 SPECULATE_TABLE_BYTES = REGISTRY.gauge(
     "speculate_committee_table_bytes",
     "Device-resident per-committee aggregate-pubkey table size in bytes "
@@ -557,4 +612,37 @@ PROCESSOR_QUEUE_WAIT = REGISTRY.histogram(
     "beacon_processor_queue_wait_seconds",
     "Enqueue-to-claim wait of the oldest item in each claimed batch "
     "(tracer clock)",
+)
+
+
+# -- the validator-monitor family (chain/validator_monitor.py) ---------------
+
+VALIDATOR_MONITOR_PROPOSALS = REGISTRY.counter(
+    "validator_monitor_blocks_proposed_total",
+    "Blocks proposed by monitored validators",
+)
+VALIDATOR_MONITOR_ATTESTATIONS = REGISTRY.counter(
+    "validator_monitor_attestations_total",
+    "Attestations by monitored validators seen on-chain or gossip",
+)
+VALIDATOR_MONITOR_INCLUSION_DELAY = REGISTRY.histogram(
+    "validator_monitor_attestation_inclusion_delay_slots",
+    "Slots between attestation slot and block inclusion",
+    buckets=(1, 2, 3, 4, 8, 16, 32),
+)
+VALIDATOR_MONITOR_TARGET_MISSES = REGISTRY.counter(
+    "validator_monitor_prev_epoch_target_misses_total",
+    "Monitored validators that missed the target in an epoch",
+)
+VALIDATOR_MONITOR_HEAD_MISSES = REGISTRY.counter(
+    "validator_monitor_prev_epoch_head_misses_total",
+    "Monitored validators that missed the head in an epoch",
+)
+VALIDATOR_MONITOR_SYNC_SIGNATURES = REGISTRY.counter(
+    "validator_monitor_sync_committee_messages_total",
+    "Sync-committee messages by monitored validators",
+)
+VALIDATOR_MONITOR_SLASHED = REGISTRY.counter(
+    "validator_monitor_slashings_total",
+    "Slashings naming monitored validators",
 )

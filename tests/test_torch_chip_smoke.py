@@ -127,12 +127,17 @@ def test_build_directory_keyed_by_its_sources(monkeypatch, tmp_path):
     assert K._source_hash() != base
 
 
-@pytest.mark.parametrize("pairs, fp12_mul", [(65, 42), (33, 41), (257, 44)])
+@pytest.mark.parametrize("pairs, fp12_mul", [(65, 42), (33, 41), (257, 44), (5, 38),
+                                             (9, 39), (17, 40)])
 def test_expected_launches_of_one_verify(pairs, fp12_mul):
     """63 doubling and 5 addition steps (|x|'s bits after the leading one,
     and its one-bits), 5 x 63 + 1 cyclotomic squares, one fp6_mul, and 35
     fp12_mul plus ceil(log2(pairs)): the gossip batch's 65 pairs, the
-    aggregate batch's 33, the gossip batch padded to 256 sets."""
+    aggregate batch's 33 (and the sync phase's contributions), the gossip
+    batch padded to 256 sets; the sync and pool phases' 512 messages over
+    one root, the light-client update and a 3-set aggregate (5), the
+    confirmed aggregates (9) and the contributions' bisection halves
+    (17)."""
     assert CS.expected_launches(TP, pairs) == {
         "miller_dbl_step": 63,
         "miller_add_step": 5,
@@ -183,7 +188,7 @@ def test_pipeline_phase_runs_last_on_warmed_buckets():
     assert set(CS.ALL_PHASES[:at]) >= {"gossip", "aggregate", "warm", "table"}
     # after it only the phases that reuse none of its state
     assert CS.ALL_PHASES[at + 1:] == ("monolith", "windowed", "correct", "adversary",
-                                      "block", "attestations", "chain")
+                                      "block", "attestations", "chain", "sync", "pool")
     warm = set(B.DEFAULT_WARM_BUCKETS)
     assert [b for b in CS.PIPELINE_BUCKETS if b not in warm] == [(1024, 4, 32)]
     assert (16, 4, 16) in warm and S.warm_capacity(64) == 64
@@ -397,8 +402,9 @@ def test_windowed_phase_runs_a_child_with_the_switch(monkeypatch, rc, fails):
 
 
 def test_block_and_attestations_phases_run_last():
-    """Last but for the chain phase, which imports the block phase's block."""
-    assert CS.ALL_PHASES[-3:-1] == ("block", "attestations")
+    """Last but for the chain phase, which imports the block phase's block,
+    and the sync and pool phases, which go on from its chain."""
+    assert CS.ALL_PHASES[-5:-3] == ("block", "attestations")
     assert "block " in CS.__doc__ and "attestations " in CS.__doc__
     assert CS.BLOCK_VALIDATORS // 32 // 128 == 4 and CS.BLOCK_DISTINCT_KEYS >= 1024
     assert (CS.GOSSIP_UNAGGREGATED, CS.GOSSIP_AGGREGATES) == (64, 32)
@@ -519,7 +525,7 @@ def test_gossip_through_the_processor_isolates_forgeries(minimal_chain):
 
 def test_chain_phase_runs_after_block_and_attestations():
     """It imports the block phase's block, over the registry they share."""
-    assert CS.ALL_PHASES[-3:] == ("block", "attestations", "chain")
+    assert CS.ALL_PHASES[-5:-2] == ("block", "attestations", "chain")
     assert "chain " in CS.__doc__
     assert CS.CHAIN_SEGMENT == 4 and 0 < CS.CHAIN_FORGED < CS.CHAIN_SEGMENT
 
@@ -730,3 +736,173 @@ def test_chain_verdicts_on_the_card(minimal_import, backend):
     verified = C.bv.signature_verify_chain_segment(chain, segment[1:])
     roots = [v.import_into(chain) for v in verified]
     assert chain.head_root == roots[-1] == segment[-1].message.tree_hash_root()
+
+
+# --- the sync and pool phases' host side, at MINIMAL -----------------------------
+
+
+def test_sync_and_pool_phases_run_last_on_the_chain():
+    """They go on from the chain phase's chain: asked for without it, the
+    script stops before it touches a card."""
+    assert CS.ALL_PHASES[-2:] == ("sync", "pool")
+    assert "sync " in CS.__doc__ and "pool " in CS.__doc__
+    with pytest.raises(SystemExit, match="chain"):
+        CS.main(["--phases", "build,sync"])
+    assert [len(b) for b in CS.SYNC_FORGED_MESSAGES] == [1, 3]
+    assert [len(b) for b in CS.SYNC_FORGED_CONTRIBUTIONS] == [1, 3]
+    assert max(max(b) for b in CS.SYNC_FORGED_CONTRIBUTIONS) < 4 * CS.SYNC_AGGREGATORS
+    assert (CS.POOL_BATCH, CS.POOL_AGGREGATES) == (64, 32)
+    assert len(CS.SPECULATE_FAMILIES) == 10
+
+
+@pytest.fixture(scope="module")
+def minimal_head(minimal_import):
+    """A chain on the MINIMAL genesis with the 4-block segment imported
+    (head at slot 4, no signature checks), its twin's registry namespace,
+    and the slot-4 sync messages over the head."""
+    C, genesis, preset, spec, segment, posts, _ = minimal_import
+    chain = _chain_on(C, genesis, preset, spec)
+    for b in segment:
+        chain.slot_clock.set_slot(b.message.slot)
+        chain.process_block(b, strategy=C.per_block.BlockSignatureStrategy.NO_VERIFICATION)
+    from types import SimpleNamespace
+
+    T = C.types
+
+    def secret_of(i):
+        return T.interop_secret_key(i % 16).scalar
+
+    host = CS.HostCrypto()
+    reg = SimpleNamespace(chain=chain, genesis=genesis, preset=preset, spec=spec,
+                          imported=list(segment), twin=None)
+    msgs = CS.sync_messages(C, chain.head_state, preset, spec, secret_of, 4,
+                            chain.head_root, host)
+    return C, reg, secret_of, host, msgs
+
+
+def test_sync_phase_items_through_the_processor_fill_the_pools(minimal_head, backend):
+    """One sender a committee position; the messages through the
+    processor (one call) fill the message pool, whose contributions (4 a
+    subnet) through the processor (one call of 3 sets each) fill the
+    contribution pool; its full sync aggregate rides the next block,
+    which the chain imports as the twin does; a forged contribution
+    changes only its own signature."""
+    C, reg, secret_of, host, msgs = minimal_head
+    chain, preset, spec = reg.chain, reg.preset, reg.spec
+    backend("fake")
+    state, head = chain.head_state, chain.head_root
+    members = CS.sync_committee_members(C, state, preset)
+    pairs = {(v, p // preset.sync_subcommittee_size) for p, v in enumerate(members)}
+    assert len(msgs) == 32 and {m.validator_index for m, _ in msgs} == set(members)
+    assert len({m.beacon_block_root for m, _ in msgs}) == 1
+    pools = CS.sync_pools(C, preset)
+    chain.slot_clock.set_slot(4)
+    monitor = C.monitor.ValidatorMonitor(auto_register=True)
+    chain.validator_monitor = monitor
+    try:
+        res, bp = CS.process_sync(C, chain, pools, messages=msgs)
+    finally:
+        chain.validator_monitor = None
+    verified, rejected = res["messages"]
+    assert len(verified) == len(pairs) and len(rejected) == 32 - len(pairs)
+    assert sum(v.sync_signatures for v in monitor.validators.values()) == len(verified)
+    contribs = CS.sync_contributions(C, state, preset, spec, secret_of, 4, head,
+                                     pools.messages, host)
+    assert len(contribs) == 4 * CS.SYNC_AGGREGATORS
+    forged = CS.forge_contributions(C, state, preset, secret_of, contribs, (5,), host)
+    assert [i for i, (a, b) in enumerate(zip(contribs, forged))
+            if a.as_ssz_bytes() != b.as_ssz_bytes()] == [5]
+    res, _ = CS.process_sync(C, chain, pools, contributions=contribs)
+    assert len(res["contributions"][0]) == len(contribs)
+    agg = pools.contributions.get_sync_aggregate(C.types.types_for(preset), 4, head)
+    assert all(agg.sync_committee_bits)
+    pre = C.per_slot.process_slots(C.per_slot.clone_state(state), 5, preset, spec)
+    block, _ = CS.produce_block(C, pre, preset, spec, secret_of, host, sync_aggregate=agg)
+    chain.slot_clock.set_slot(5)
+    assert chain.process_block(block) == block.message.tree_hash_root()
+    CS.twin_check(C, reg, [block], "sync")
+    assert reg.twin is not None and len(reg.imported) == 5
+
+
+def test_sync_phase_light_client_update_verifies_on_the_cpu_oracle(minimal_head, backend):
+    """The store bootstrapped at the genesis block follows the optimistic
+    update whose aggregate the committee signed over the head (the
+    phase's construction, its parse cache seeded with untagged keys as
+    the phase seeds it), on the cpu oracle; with one member's
+    signature over a wrong root it is rejected."""
+    C, reg, secret_of, host, _ = minimal_head
+    backend("cpu")
+    L, T, preset = C.light, C.types, reg.preset
+    chain = _chain_on(C, reg.genesis, preset, reg.spec)
+    state, head = chain.head_state, chain.head_root  # the genesis block
+    members = CS.sync_committee_members(C, state, preset)
+    domain = T.get_domain(state, T.DOMAIN_SYNC_COMMITTEE, 0, preset)
+    signing = T.SigningData(object_root=head, domain=domain).tree_hash_root()
+    sig, rest, bad = host.sign([([secret_of(v) for v in members], signing),
+                                ([secret_of(v) for v in members[1:]], signing),
+                                ([secret_of(members[0])], CS.wrong_root(signing))])
+    t = T.types_for(preset)
+    agg = t.SyncAggregate(sync_committee_bits=(True,) * len(members),
+                          sync_committee_signature=sig)
+    boot = L.light_client_bootstrap(reg.genesis, preset)
+    store = L.LightClientStore(chain.genesis_block_root, boot, preset, reg.spec,
+                               bytes(state.genesis_validators_root))
+    CS.seed_light_client(C, store, boot.current_sync_committee, chain.pubkey_cache)
+    parsed = store._parsed_committees[boot.current_sync_committee.tree_hash_root()]
+    assert all(getattr(k, "table", None) is None and k.subgroup_ok() for k in parsed)
+    assert [k.to_bytes() for k in parsed] == [
+        bytes(pk) for pk in boot.current_sync_committee.pubkeys]
+    update = L.light_client_optimistic_update(state, agg, 1, preset)
+    assert update.attested_header.tree_hash_root() == head
+    store.process_optimistic_update(update)
+    assert store.current_max_active_participants == len(members)
+    forged = type(update).from_ssz_bytes(update.as_ssz_bytes())
+    forged.sync_aggregate.sync_committee_signature = C.api.AggregateSignature.aggregate(
+        [C.api.Signature.from_bytes(rest), C.api.Signature.from_bytes(bad)]).to_bytes()
+    with pytest.raises(L.LightClientError, match="signature invalid"):
+        store.process_optimistic_update(forged)
+
+
+def test_pool_phase_confirmable_aggregates_confirm_by_lookup(minimal_head, backend,
+                                                             monkeypatch):
+    """attach_speculation over the chain; the idle pass pre-verifies the
+    next slot's committees; the phase's speculated aggregates for that
+    slot then reach the backend as 2 sets each (the indexed set confirmed
+    by lookup); the unaggregated attestations of the head's slot, in
+    processor batches, fill the naive pool with full aggregates."""
+    C, reg, secret_of, host, _ = minimal_head
+    chain, preset, spec = reg.chain, reg.preset, reg.spec
+    backend("fake")
+    calls = _fake_calls(monkeypatch, C)
+    slot = int(chain.head_state.slot)
+    chain.slot_clock.set_slot(slot)
+
+    def source(data, members, root):
+        return host.sign([([secret_of(v) for v in members], root)])[0]
+
+    idle = C.processor.BeaconProcessor(handlers={})
+    sub = C.speculate.attach_speculation(chain, idle, signature_source=source)
+    try:
+        idle.run_until_idle()
+        assert sub.verifier.stats["preverified"] == 2 and calls == [1, 1]
+        chain.slot_clock.set_slot(slot + 1)
+        aggs = CS.speculated_aggregates(C, chain, chain.head_state, preset, spec,
+                                        secret_of, slot + 1, host, source)
+        del calls[:]
+        res, _ = CS.process_gossip(C, chain, aggregates=aggs)
+        assert calls == [2 * len(aggs)] and sub.verifier.stats["confirms"] == len(aggs)
+        assert len(res["aggregate"][0]) == len(aggs)
+    finally:
+        sub.detach()
+    naive = C.pool.NaiveAggregationPool()
+    ahead = C.per_slot.process_slots(C.per_slot.clone_state(chain.head_state), slot + 1,
+                                     preset, spec)
+    unagg = CS.gossip_unaggregated(C, ahead, preset, spec, secret_of, slot, 8, host)
+    chain.slot_clock.set_slot(slot)
+    del calls[:]
+    res, _ = CS.process_gossip(C, chain, unagg, max_batch=4, sink=lambda name, vs: [
+        naive.insert(v.attestation) for v in vs])
+    assert calls == [4, 4] and len(res["unaggregated"][0]) == 8
+    t = C.types.types_for(preset)
+    assert all(all(naive.get_aggregate(t, a.data).aggregation_bits) for a in unagg)
+

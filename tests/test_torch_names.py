@@ -4,8 +4,8 @@ lighthouse_tpu/crypto/bls/tpu/{limbs,tower,curve,pairing,hash_to_curve}.py
 and backends/jax_tpu.py has a same-named counterpart in the port's
 gpu/ modules and backends/torch_cuda.py, and so has every one of the
 consensus modules the port copies (ssz/, types/, utils/, the ported
-state_transition/, store/, fork_choice/, chain/, pool/ and processor/
-modules; execution_layer/execution_layer.py in part); every
+state_transition/, store/, fork_choice/, chain/, pool/, processor/ and
+speculate/ modules; execution_layer/execution_layer.py in part); every
 name a package `__init__.py` of those exports is exported by the port's,
 or stands on the list below with the ROADMAP item that brings it, and
 ROADMAP.md names it. The JAX files are parsed, not imported: nothing
@@ -59,6 +59,10 @@ CONSUMERS = {
         "fork_choice/proto_array.py", "fork_choice/fork_choice.py",
         "chain/state_cache.py", "chain/early_attester_cache.py",
         "chain/beacon_chain.py", "chain/block_verification.py",
+        "chain/sync_committee_verification.py", "chain/validator_monitor.py",
+        "processor/reprocess.py", "pool/max_cover.py", "pool/naive_aggregation.py",
+        "pool/operation_pool.py", "speculate/precompute.py", "speculate/scheduler.py",
+        "speculate/__init__.py", "ssz/merkle_proof.py", "chain/light_client.py",
     )
 }
 
@@ -78,9 +82,6 @@ WAITING = {
     "state_transition/__init__.py": dict.fromkeys((
         "initialize_beacon_state_from_eth1", "is_valid_genesis_state",
         "try_genesis_from_eth1"), _ST),
-    "pool/__init__.py": dict.fromkeys(
-        ("max_cover", "NaiveAggregationPool", "OperationPool"),
-        "pool/ (ROADMAP Queue 1 item 14.6)"),
     "execution_layer/__init__.py": dict.fromkeys((
         "JwtError", "JwtKey", "generate_token", "validate_token", "BuilderError",
         "BuilderHttpClient", "BuilderHttpServer", "MockBuilder", "NoBidAvailable",
@@ -94,7 +95,7 @@ WAITING = {
 INITS = ("ssz/__init__.py", "types/__init__.py", "state_transition/__init__.py",
          "chain/__init__.py", "pool/__init__.py", "processor/__init__.py",
          "fork_choice/__init__.py", "store/__init__.py",
-         "execution_layer/__init__.py")
+         "execution_layer/__init__.py", "speculate/__init__.py")
 
 
 def _public_names(path: Path) -> set:
