@@ -135,8 +135,9 @@ Phases (each one fails the run with a nonzero exit):
              attesters and 32 SignedAggregateAndProofs (3 sets each) from
              members that is_aggregator selects, over the block phase's
              registry: every honest item verified, the same verdicts as
-             the sync batch_verify_*; then each batch with 1 and with 3
-             planted forgeries: exactly those rejected ("invalid
+             the sync batch_verify_*; then the unaggregated batch with 1
+             and with 3 planted forgeries and the aggregates with 1:
+             exactly those rejected ("invalid
              signature"), every other item verified, the bisection within
              k (ceil(log2 n) + 1) extra backend calls; att_setup,
              verify-wait and bisection ms from the port's spans
@@ -178,9 +179,10 @@ Phases (each one fails the run with a nonzero exit):
              gossip_sync_contribution: one call of 3 sets each (selection
              proof, contribution-and-proof, the contribution's 128-key
              aggregate); both batches replayed; a sync-lane submit of the
-             messages timed on an idle card and behind a ~1 s spin; both
-             batches with 1 and 3 planted forgeries: exactly those
-             rejected, within the bisection bound; the SyncContributionPool's
+             messages timed on an idle card and behind a ~1 s spin; the
+             messages with 1 planted forgery and the contributions with 1
+             and 3: exactly those rejected, within the bisection bound;
+             the SyncContributionPool's
              sync aggregate in the next block, which the chain imports; a
              LightClientStore bootstrapped at the genesis block follows
              the optimistic update that aggregate signs (512 keys gathered
@@ -205,6 +207,39 @@ Phases (each one fails the run with a nonzero exit):
              held to expected_launches, every verdict to the cpu oracle's,
              and the head and checkpoints to the twin chain's, which
              imports every block the chain imports without verifying
+  genesis    genesis from eth1 deposits on the card (MINIMAL, its 64
+             min_genesis_active_validator_count): 64 interop deposits
+             signed on the host pool, in a DepositDataTree with their
+             branches; initialize_beacon_state_from_eth1 verifies each new
+             key's proof of possession as one one-set call; the state
+             valid, its root the `fake` backend's; again with a forged
+             65th deposit in the list: that key absent, every other
+             validator and balance as before; try_genesis_from_eth1 over a
+             stub service whose cached blocks cross min_genesis_time
+             returns that state at the first qualifying block; an EF tree
+             in the official layout (every kind of the official BLS suite
+             for verify, fast_aggregate_verify, aggregate_verify and
+             batch_verify, signed by the host oracle, and genesis
+             initialization and validity cases of the run above) through
+             the port's ef_tests.run_tree: every case ok. Printed for each
+             call kind (deposit, verify, fast-aggregate, aggregate,
+             batch): sets, keys, pairs, first-call s, replayed ms
+  finality   the port's BeaconChainHarness (MINIMAL, 64 validators,
+             sign=True: the host oracle signs) over a NativeStore under
+             build/finality/, its chain on the card: extend_chain until
+             the chain finalizes (at most 5 epochs), every block imported
+             with VERIFY_BULK on torch_cuda; the head and checkpoints
+             equal a NO_VERIFICATION twin's over a MemoryStore; a block
+             whose attestation signature is forged rejected with the
+             JAX harness chain's error, the head kept; run_fsck clean;
+             the file reopened as a new NativeStore, from which
+             BeaconChain.from_store resumes at the same head and
+             finalized checkpoint; the STORE_NATIVE_* and STORE_FSCK_*
+             counts; a block's seconds split into production (host
+             signing, the post-state root), verify, the rest of the
+             transition, store and fork choice. In both phases every
+             call's launches are held to expected_launches and every
+             verdict to the cpu oracle's
 
 The entry points run each stage as a CUDA graph: in every path the first
 verify of a batch captures its stages and the verifies after it replay
@@ -230,6 +265,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -241,7 +277,8 @@ import time
 ALL_PHASES = (
     "build", "kernels", "parity", "gossip", "aggregate", "warm", "table",
     "aggverify", "graphs", "pipeline", "monolith", "windowed", "correct",
-    "adversary", "block", "attestations", "chain", "sync", "pool",
+    "adversary", "block", "attestations", "chain", "sync", "pool", "genesis",
+    "finality",
 )
 # run only as the windowed phase's child process
 CHILD_PHASES = ("windowed-child",)
@@ -1810,12 +1847,16 @@ BLOCK_SLOT = 31  # the last slot of epoch 0: slots 0-30 have 124 committees
 GOSSIP_UNAGGREGATED = 64  # the beacon processor's gossip batch
 GOSSIP_AGGREGATES = 32
 FORGED_UNAGGREGATED = ((17,), (5, 33, 60))
-FORGED_AGGREGATES = ((11,), (3, 19, 28))
+# one forged aggregate: the 3-forgery run (25-30 s on the card, its 17
+# bisection calls) was cut with the sync phase's to keep the default run
+# near ~800 s once the genesis and finality phases came; the unaggregated
+# batch keeps both runs
+FORGED_AGGREGATES = ((11,),)
 
 
 def consensus_modules():
     """The port's consensus modules that the block, attestations, chain,
-    sync and pool phases drive, as one namespace."""
+    sync, pool, genesis and finality phases drive, as one namespace."""
     import importlib
     from types import SimpleNamespace
 
@@ -1833,6 +1874,10 @@ def consensus_modules():
         sync="chain.sync_committee_verification", monitor="chain.validator_monitor",
         light="chain.light_client", pool="pool", speculate="speculate",
         reprocess="processor.reprocess", adversary="crypto.bls.adversary",
+        genesis="state_transition.genesis", deposit_tree="eth1.deposit_tree",
+        signature_sets="state_transition.signature_sets", ef_tests="ef_tests",
+        snappy="network.snappy", harness="harness", native_kv="store.native_kv",
+        fsck="store.fsck",
     )
     return SimpleNamespace(**{
         k: importlib.import_module("lighthouse_tpu_torch." + v)
@@ -1895,6 +1940,20 @@ def _oracle(sets, seed):
         for pks, msg, sig in sets], seed=seed)
 
 
+def _oracle_aggregate(signature, keys, messages):
+    """Worker: the cpu oracle backend's aggregate_verify over keys given
+    as (x, y) (the caller's validated ones)."""
+    from lighthouse_tpu_torch.crypto.bls import api
+    from lighthouse_tpu_torch.crypto.bls.backends import cpu
+    from lighthouse_tpu_torch.crypto.bls.curve_ref import Point
+    from lighthouse_tpu_torch.crypto.bls.fields_ref import Fp
+
+    return cpu.aggregate_verify(
+        api.Signature.from_bytes(signature),
+        [api.PublicKey(Point(Fp(x), Fp(y)), subgroup_checked=True) for x, y in keys],
+        messages)
+
+
 def oracle_job(sets):
     """Sets in `_oracle`'s plain form."""
     return [([(k.point.x.n, k.point.y.n) for k in s.pubkeys], bytes(s.message),
@@ -1911,6 +1970,7 @@ class HostCrypto:
     def __init__(self, pool=None):
         self.pool = pool
         self._signed = {}
+        self._oracled = {}
 
     def sign(self, jobs):
         """[(secret scalars, root)] -> [signature bytes], each made once
@@ -1927,14 +1987,30 @@ class HostCrypto:
     def map(self, fn, items):
         return list(map(fn, items) if self.pool is None else self.pool.map(fn, items))
 
+    def _submit(self, fn, *args):
+        """fn(*args) on the pool, once for equal arguments (a batch met
+        again, as genesis meets its deposits, is not verified again):
+        a callable that returns its result."""
+        key = (fn.__name__, hashlib.sha256(repr(args).encode()).digest())
+        if key not in self._oracled:
+            if self.pool is None:
+                result = fn(*args)
+                self._oracled[key] = lambda: result
+            else:
+                self._oracled[key] = self.pool.submit(fn, *args).result
+        return self._oracled[key]
+
     def oracle(self, batches, seed):
         """A callable that returns the cpu oracle backend's verdict on each
         batch of sets: computed on the pool meanwhile, else when called."""
-        jobs = [oracle_job(sets) for sets in batches]
-        if self.pool is None:
-            return lambda: [_oracle(job, seed) for job in jobs]
-        futures = [self.pool.submit(_oracle, job, seed) for job in jobs]
-        return lambda: [f.result() for f in futures]
+        results = [self._submit(_oracle, oracle_job(sets), seed) for sets in batches]
+        return lambda: [r() for r in results]
+
+    def oracle_aggregate(self, signature, pubkeys, messages):
+        """As `oracle`, for one aggregate_verify."""
+        return self._submit(
+            _oracle_aggregate, signature.to_bytes(),
+            [(k.point.x.n, k.point.y.n) for k in pubkeys], [bytes(m) for m in messages])
 
 
 def registry_state(C, preset, spec, validators, distinct, host):
@@ -2521,11 +2597,14 @@ def backend_calls(B, M):
     """Every batch that reaches torch_cuda's dispatch within the block
     (the sync and the pipelined verify both end there): its sets, its
     Miller pairs and its verdict as dispatched (a device bool, or False
-    when a structural check decided it)."""
+    when a structural check decided it, with 0 pairs); and every call of
+    torch_cuda's aggregate_verify (one signature over distinct messages):
+    its (signature, pubkeys, messages) as `agg`, no sets, the pairs of its
+    Miller stage (the keys' bucket + 1) and its verdict."""
     import functools
 
     calls = []
-    real = B.dispatch_verify_signature_sets
+    real, real_agg = B.dispatch_verify_signature_sets, B.aggregate_verify
 
     @functools.wraps(real)
     def spy(sets, *args, **kwargs):
@@ -2535,11 +2614,18 @@ def backend_calls(B, M):
                           out=out))
         return out
 
-    B.dispatch_verify_signature_sets = spy
+    @functools.wraps(real_agg)
+    def spy_agg(signature, pubkeys, messages, *args, **kwargs):
+        out = real_agg(signature, pubkeys, messages, *args, **kwargs)
+        calls.append(dict(sets=[], agg=(signature, list(pubkeys), list(messages)),
+                          pairs=B._bucket(len(pubkeys)) + 1, out=out))
+        return out
+
+    B.dispatch_verify_signature_sets, B.aggregate_verify = spy, spy_agg
     try:
         yield calls
     finally:
-        B.dispatch_verify_signature_sets = real
+        B.dispatch_verify_signature_sets, B.aggregate_verify = real, real_agg
 
 
 def oracle_verdict(host, sets, seed):
@@ -2775,20 +2861,28 @@ class Calls:
             result = fn()
         secs = time.perf_counter() - t
         counts = dict(K.LAUNCHES)
-        sizes = [len(c["sets"]) for c in calls]
+        sizes = [1 if "agg" in c else len(c["sets"]) for c in calls]
         need(calls, f"{label}: no backend call")
         if want_calls is not None:
             need(sizes == want_calls, f"{label}: backend calls of {sizes} sets, "
                  f"want {want_calls}")
         want = {}
         for c in calls:
-            add_launches(want, expected_launches(self.TP, c["pairs"]))
-        check_launches(label, counts, want)
+            if c["pairs"]:  # 0: a structural check decided it, no device work
+                add_launches(want, expected_launches(self.TP, c["pairs"]))
+        if want:
+            check_launches(label, counts, want)
+        else:
+            need(not any(counts.values()), f"{label}: launches {counts} without a "
+                 "device call")
         add_launches(self.launches, counts)
         verdicts = [bool(c["out"]) for c in calls]
         for c, v in zip(calls, verdicts):
-            self.oracles.append((label, v, oracle_verdict(self.host, c["sets"], 41)))
-        row = dict(seconds=secs, calls=sizes, keys=[block_key_count(c["sets"]) for c in calls],
+            self.oracles.append((label, v, self.host.oracle_aggregate(*c["agg"])
+                                 if "agg" in c else oracle_verdict(self.host, c["sets"], 41)))
+        row = dict(seconds=secs, calls=sizes,
+                   keys=[len(c["agg"][1]) if "agg" in c else block_key_count(c["sets"])
+                         for c in calls],
                    pairs=[c["pairs"] for c in calls], verdicts=verdicts, launches=counts)
         self.rows[label] = row
         shown = (f"{sizes} sets ({row['keys']} keys, {row['pairs']} pairs, verdicts "
@@ -2825,7 +2919,11 @@ class Calls:
 # --- the sync phase: sync-committee messages and contributions, the light client
 
 
-SYNC_FORGED_MESSAGES = ((17,), (5, 200, 400))
+# one forged message: the 3-forgery run (~20 s on the card) was cut to keep
+# the default run near ~800 s once the genesis and finality phases came;
+# the unaggregated attestations and the contributions keep their 3-forgery
+# runs
+SYNC_FORGED_MESSAGES = ((17,),)
 SYNC_FORGED_CONTRIBUTIONS = ((5,), (1, 7, 12))
 SYNC_AGGREGATORS = 4  # contributions a subnet (~16 aggregators a subnet on mainnet)
 SYNC_MONITORED = 64  # the validator monitor registers the first 64 positions' senders
@@ -3455,6 +3553,523 @@ def phase_pool(torch, K, TP, B, C, reg, launches, card):
     return out
 
 
+# --- the genesis phase: genesis from eth1 deposits, the EF-vector walker
+
+
+GENESIS_DEPOSITS = 64  # ChainSpec.minimal's min_genesis_active_validator_count
+GENESIS_FORGED_AT = 17  # the forged deposit's place in the forged run's list
+ETH1_BLOCK_HASH = b"\x42" * 32
+EF_KINDS = ("verify", "fast_aggregate_verify", "aggregate_verify", "batch_verify")
+
+
+def genesis_deposit_data(C, spec, n, host, sign=True, forged=()):
+    """DepositData of interop keys 0..n-1 at a full stake, with the
+    withdrawal credentials interop genesis gives them, each signed by its
+    key over the deposit domain (signatures from `host`); an index in
+    `forged` signs a wrong root; `sign=False` puts the infinity signature
+    (for the `fake` backend)."""
+    T, api = C.types, C.api
+    keys = [api.PublicKey(C.curve.Point(C.fields.Fp(x), C.fields.Fp(y))).to_bytes()
+            for x, y in host.map(_pubkey_xy, range(n))]
+    datas = [T.DepositData(
+        pubkey=pk, withdrawal_credentials=b"\x00" + hashlib.sha256(pk).digest()[1:],
+        amount=spec.max_effective_balance, signature=api.INFINITY_SIGNATURE)
+        for pk in keys]
+    if sign:
+        domain = T.compute_domain(T.DOMAIN_DEPOSIT, spec.genesis_fork_version, bytes(32))
+        jobs = []
+        for i, d in enumerate(datas):
+            root = T.compute_signing_root(T.DepositMessage(
+                pubkey=d.pubkey, withdrawal_credentials=d.withdrawal_credentials,
+                amount=d.amount), domain)
+            jobs.append(([T.interop_secret_key(i).scalar],
+                         wrong_root(root) if i in forged else root))
+        for d, sig in zip(datas, host.sign(jobs)):
+            d.signature = sig
+    return datas
+
+
+def deposit_list(C, datas):
+    """The deposit contract's tree over `datas` and each deposit with its
+    branch against the root of the deposits up to it, as genesis replays
+    them. Returns (tree, deposits)."""
+    tree = C.deposit_tree.DepositDataTree()
+    for d in datas:
+        tree.push(d)
+    return tree, [tree.deposit(i, d, i + 1) for i, d in enumerate(datas)]
+
+
+def genesis_eth1_blocks(spec, block_hash, n):
+    """(hash, timestamp, deposit count) of the eth1 blocks a genesis
+    service has cached, oldest first: one too early, one with too few
+    deposits, the first that qualifies (`block_hash` at min_genesis_time
+    with n deposits) and a later one."""
+    t = spec.min_genesis_time
+    early = t - spec.genesis_delay - 1
+    return [(b"\x01" * 32, early, n), (b"\x02" * 32, t, n // 2),
+            (block_hash, t, n), (b"\x03" * 32, t + 14, n)]
+
+
+def _hex(b) -> str:
+    return "0x" + bytes(b).hex()
+
+
+def _ef_write(case_dir, files):
+    """One case directory of the official layout: `files` maps a name to
+    bytes (written ssz_snappy-compressed by the port's snappy) or to a
+    plain value (written as JSON, which every YAML reader reads)."""
+    from lighthouse_tpu_torch.network.snappy import compress
+
+    os.makedirs(case_dir, exist_ok=True)
+    for name, value in files.items():
+        if isinstance(value, bytes):
+            with open(os.path.join(case_dir, name), "wb") as f:
+                f.write(compress(value))
+        else:
+            with open(os.path.join(case_dir, name), "w") as f:
+                json.dump(value, f)
+
+
+def ef_bls_cases(C, host):
+    """{handler: {case: data.yaml's content}} covering every kind of case
+    the official BLS suite has for the four handlers: valid, a wrong
+    pubkey, a tampered signature (its last 4 bytes 0xff, as the official
+    generator tampers), the infinity pubkey with the infinity signature,
+    no pubkeys with the infinity signature and with an all-zero one, an
+    extra pubkey, and a batch with one invalid set; signed by the port's
+    host oracle (`host`)."""
+    api, T = C.api, C.types
+    scalars = [T.interop_secret_key(1000 + i).scalar for i in range(4)]
+    pks = [_hex(api.PublicKey(C.curve.Point(C.fields.Fp(x), C.fields.Fp(y))).to_bytes())
+           for x, y in host.map(_pubkey_xy, range(1000, 1004))]
+    msgs = [bytes(32), b"\x56" * 32, b"\xab" * 32]
+    one = host.sign([([scalars[i]], msgs[i]) for i in range(3)])
+    fast = host.sign([(scalars[:3], msgs[1])])[0]
+    agg = api.AggregateSignature.aggregate(
+        [api.Signature.from_bytes(b) for b in one]).to_bytes()
+    inf_pk, inf_sig = _hex(b"\xc0" + bytes(47)), _hex(api.INFINITY_SIGNATURE)
+
+    def tampered(sig):
+        return _hex(bytes(sig)[:-4] + b"\xff" * 4)
+
+    m = [_hex(x) for x in msgs]
+    return {
+        "verify": {
+            "valid": dict(input=dict(pubkey=pks[0], message=m[0], signature=_hex(one[0])),
+                          output=True),
+            "wrong_pubkey": dict(input=dict(pubkey=pks[1], message=m[0],
+                                            signature=_hex(one[0])), output=False),
+            "tampered_signature": dict(input=dict(pubkey=pks[0], message=m[0],
+                                                  signature=tampered(one[0])), output=False),
+            "infinity_pubkey_and_infinity_signature": dict(
+                input=dict(pubkey=inf_pk, message=m[0], signature=inf_sig), output=False),
+        },
+        "fast_aggregate_verify": {
+            "valid": dict(input=dict(pubkeys=pks[:3], message=m[1], signature=_hex(fast)),
+                          output=True),
+            "extra_pubkey": dict(input=dict(pubkeys=pks, message=m[1],
+                                            signature=_hex(fast)), output=False),
+            "tampered_signature": dict(input=dict(pubkeys=pks[:3], message=m[1],
+                                                  signature=tampered(fast)), output=False),
+            "infinity_pubkey": dict(input=dict(pubkeys=pks[:2] + [inf_pk], message=m[1],
+                                               signature=_hex(fast)), output=False),
+            "na_pubkeys_and_infinity_signature": dict(
+                input=dict(pubkeys=[], message=m[1], signature=inf_sig), output=False),
+            "na_pubkeys_and_zero_signature": dict(
+                input=dict(pubkeys=[], message=m[1], signature=_hex(bytes(96))),
+                output=False),
+        },
+        "aggregate_verify": {
+            "valid": dict(input=dict(pubkeys=pks[:3], messages=m, signature=_hex(agg)),
+                          output=True),
+            "tampered_signature": dict(input=dict(pubkeys=pks[:3], messages=m,
+                                                  signature=tampered(agg)), output=False),
+            "infinity_pubkey": dict(input=dict(pubkeys=pks[:2] + [inf_pk], messages=m,
+                                               signature=_hex(agg)), output=False),
+            "na_pubkeys_and_infinity_signature": dict(
+                input=dict(pubkeys=[], messages=[], signature=inf_sig), output=False),
+            "na_pubkeys_and_zero_signature": dict(
+                input=dict(pubkeys=[], messages=[], signature=_hex(bytes(96))),
+                output=False),
+        },
+        "batch_verify": {
+            "valid": dict(input=dict(pubkeys=pks[:3], messages=m,
+                                     signatures=[_hex(x) for x in one]), output=True),
+            "invalid_set": dict(input=dict(pubkeys=pks[:3], messages=m,
+                                           signatures=[_hex(one[0]), _hex(one[2]),
+                                                       _hex(one[2])]), output=False),
+            "tampered_signature": dict(input=dict(
+                pubkeys=pks[:3], messages=m,
+                signatures=[_hex(one[0]), tampered(one[1]), _hex(one[2])]), output=False),
+        },
+    }
+
+
+def write_ef_tree(C, root, host, genesis=None):
+    """An EF test tree in the official layout under `root`: the BLS cases
+    of `ef_bls_cases` at tests/general/phase0/bls/<handler>/bls/<case>/,
+    and, with `genesis` = (eth1 block hash, eth1 timestamp, deposits, the
+    state genesis made of them, spec), its genesis cases under
+    tests/minimal/phase0/genesis/: initialization from those deposits,
+    validity of that state and of the same state one second too early.
+    Returns {case directory: the BLS case's data} (genesis cases: None)."""
+    cases = {}
+    bls = ef_bls_cases(C, host)
+    for handler, kinds in bls.items():
+        for kind, data in kinds.items():
+            d = os.path.join(root, "tests", "general", "phase0", "bls", handler, "bls",
+                             f"{handler}_{kind}")
+            _ef_write(d, {"data.yaml": data})
+            cases[d] = data
+    if genesis is not None:
+        block_hash, timestamp, deposits, state, spec = genesis
+        base = os.path.join(root, "tests", "minimal", "phase0", "genesis")
+        d = os.path.join(base, "initialization", "pyspec_tests", "from_eth1_deposits")
+        _ef_write(d, {"eth1.yaml": dict(eth1_block_hash=_hex(block_hash),
+                                        eth1_timestamp=int(timestamp)),
+                      "meta.yaml": dict(deposits_count=len(deposits)),
+                      "state.ssz_snappy": state.as_ssz_bytes(),
+                      **{f"deposits_{i}.ssz_snappy": dep.as_ssz_bytes()
+                         for i, dep in enumerate(deposits)}})
+        cases[d] = None
+        early = C.per_slot.clone_state(state)
+        early.genesis_time = spec.min_genesis_time - 1
+        for name, st, valid in (("valid", state, True), ("too_early", early, False)):
+            d = os.path.join(base, "validity", "pyspec_tests", name)
+            _ef_write(d, {"genesis.ssz_snappy": st.as_ssz_bytes(), "is_valid.yaml": valid})
+            cases[d] = None
+    return cases
+
+
+def ef_case_call(C, data, handler):
+    """The port's api call a BLS case makes on its inputs (as the walker
+    makes it), for a case whose inputs all decode."""
+    api = C.api
+    inp = data["input"]
+
+    def b(h):
+        return bytes.fromhex(h[2:])
+
+    if handler == "verify":
+        return lambda: api.verify(api.Signature.from_bytes(b(inp["signature"])),
+                                  [api.PublicKey.from_bytes(b(inp["pubkey"]))],
+                                  b(inp["message"]))
+    pks = [api.PublicKey.from_bytes(b(p)) for p in inp["pubkeys"]]
+    if handler == "fast_aggregate_verify":
+        return lambda: api.verify(api.Signature.from_bytes(b(inp["signature"])), pks,
+                                  b(inp["message"]))
+    if handler == "aggregate_verify":
+        return lambda: api.aggregate_verify(api.Signature.from_bytes(b(inp["signature"])),
+                                            pks, [b(x) for x in inp["messages"]])
+    sets = [api.SignatureSet.single_pubkey(api.Signature.from_bytes(b(s)), pk, b(m))
+            for pk, m, s in zip(pks, inp["messages"], inp["signatures"])]
+    return lambda: api.verify_signature_sets(sets, seed=1)
+
+
+def genesis_service(tree, datas, blocks):
+    """The three attributes `try_genesis_from_eth1` reads of an eth1
+    service: its cached blocks, its deposit tree and its deposit data."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(
+        block_cache=[SimpleNamespace(hash=h, timestamp=t, deposit_count=n)
+                     for h, t, n in blocks],
+        deposit_tree=tree, _deposit_data=datas)
+
+
+def phase_genesis(torch, K, TP, B, C, host, launches, card):
+    """Genesis from eth1 deposits on the card (MINIMAL): 64 interop
+    deposits, each new key's proof of possession one one-set call, the
+    state valid and equal to the `fake` backend's; a forged 65th deposit
+    left out; try_genesis_from_eth1 over a stub service; an EF tree of
+    BLS and genesis cases through the port's walker. Every call against
+    the cpu oracle."""
+    T, G, api = C.types, C.genesis, C.api
+    preset, spec = T.MINIMAL, T.ChainSpec.minimal()
+    need(spec.min_genesis_active_validator_count == GENESIS_DEPOSITS,
+         f"genesis: minimal spec wants {spec.min_genesis_active_validator_count}")
+    t_phase = time.perf_counter()
+    datas = genesis_deposit_data(C, spec, GENESIS_DEPOSITS + 1, host,
+                                 forged=(GENESIS_DEPOSITS,))
+    honest = datas[:GENESIS_DEPOSITS]
+    tree, deposits = deposit_list(C, honest)
+    bad_datas = honest[:GENESIS_FORGED_AT] + [datas[-1]] + honest[GENESIS_FORGED_AT:]
+    _, bad_deposits = deposit_list(C, bad_datas)
+    build_s = time.perf_counter() - t_phase
+    log(f"genesis: {len(datas)} interop deposits signed with their proofs in "
+        f"{build_s:.1f} s")
+
+    calls, out = Calls(torch, K, TP, B, C, host, launches, card), {}
+    ts = spec.min_genesis_time
+
+    def initialize(deps):
+        return G.initialize_beacon_state_from_eth1(ETH1_BLOCK_HASH, ts, deps, preset, spec)
+
+    one = [C.signature_sets.deposit_signature_set(honest[0], spec)]
+    calls.step("genesis: deposit", lambda: api.verify_signature_sets(one), [1])
+    calls.replay("genesis: deposit", one)
+    state, _ = calls.step("genesis: initialize from eth1", lambda: initialize(deposits),
+                          [1] * GENESIS_DEPOSITS)
+    need(calls.rows["genesis: initialize from eth1"]["verdicts"] == [True] * GENESIS_DEPOSITS,
+         "genesis: a deposit rejected")
+    need(len(state.validators) == GENESIS_DEPOSITS and
+         G.is_valid_genesis_state(state, preset, spec), "genesis: state not valid")
+    api.set_backend("fake")
+    try:
+        fake_root = initialize(deposits).tree_hash_root()
+    finally:
+        api.set_backend("torch_cuda")
+    need(state.tree_hash_root() == fake_root, "genesis: state root differs from the "
+         "fake backend's")
+
+    bad, _ = calls.step("genesis: forged deposit", lambda: initialize(bad_deposits),
+                        [1] * (GENESIS_DEPOSITS + 1))
+    want = [True] * GENESIS_DEPOSITS
+    want.insert(GENESIS_FORGED_AT, False)
+    need(calls.rows["genesis: forged deposit"]["verdicts"] == want,
+         "genesis: forged run's verdicts")
+    need([v.as_ssz_bytes() for v in bad.validators] ==
+         [v.as_ssz_bytes() for v in state.validators] and
+         list(bad.balances) == list(state.balances),
+         "genesis: the forged deposit changed the registry")
+
+    service = genesis_service(tree, honest, genesis_eth1_blocks(
+        spec, ETH1_BLOCK_HASH, GENESIS_DEPOSITS))
+    waited, _ = calls.step("genesis: try_genesis_from_eth1",
+                           lambda: G.try_genesis_from_eth1(service, preset, spec),
+                           [1] * GENESIS_DEPOSITS)
+    need(waited is not None and waited.tree_hash_root() == state.tree_hash_root(),
+         "genesis: try_genesis_from_eth1 did not return the first qualifying state")
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "ef",
+                        str(os.getpid()))
+    if os.path.isdir(root):
+        import shutil
+
+        shutil.rmtree(root)
+    cases = write_ef_tree(C, root, host, genesis=(ETH1_BLOCK_HASH, ts, deposits, state,
+                                                  spec))
+    for handler in EF_KINDS:
+        d = os.path.join(root, "tests", "general", "phase0", "bls", handler, "bls",
+                         f"{handler}_valid")
+        label = f"genesis: {handler}"
+        fn = ef_case_call(C, cases[d], handler)
+        ok, step_calls = calls.step(label, fn, [1 if handler != "batch_verify" else 3])
+        need(ok is True, f"{label}: valid case rejected")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        need(fn() is True, f"{label}: replay rejected")
+        calls.rows[label]["replayed_ms"] = (time.perf_counter() - t) * 1e3
+    results, _ = calls.step("genesis: EF cases", lambda: C.ef_tests.run_tree(root))
+    bad_cases = [r for r in results if not r.ok]
+    need(len(results) == len(cases) and not bad_cases,
+         f"genesis: EF walker: {len(results)} of {len(cases)} cases, failed {bad_cases}")
+    ef_calls = calls.rows["genesis: EF cases"]
+    oracle_wait_s = calls.check_oracle("genesis")
+    kinds = {"deposit": "genesis: deposit", **{h: f"genesis: {h}" for h in EF_KINDS}}
+    for kind, label in kinds.items():
+        row = calls.rows[label]
+        log(f"genesis: {kind}: {row['calls'][0]} sets, {row['keys'][0]} keys, "
+            f"{row['pairs'][0]} pairs; first call {row['seconds']:.3f} s, replayed "
+            f"{row['replayed_ms']:.1f} ms; card: {card}")
+        out[kind] = dict(sets=row["calls"][0], keys=row["keys"][0], pairs=row["pairs"][0],
+                         first_call_s=row["seconds"], replayed_ms=row["replayed_ms"])
+    init = calls.rows["genesis: initialize from eth1"]
+    out.update(
+        deposits=GENESIS_DEPOSITS, build_s=build_s, genesis_s=init["seconds"],
+        forged_s=calls.rows["genesis: forged deposit"]["seconds"],
+        try_genesis_s=calls.rows["genesis: try_genesis_from_eth1"]["seconds"],
+        ef_cases=len(results), ef_calls=len(ef_calls["calls"]),
+        ef_s=ef_calls["seconds"], oracle_wait_s=oracle_wait_s,
+        seconds=time.perf_counter() - t_phase)
+    log(f"genesis: {GENESIS_DEPOSITS} deposits in {init['seconds']:.3f} s "
+        f"({GENESIS_DEPOSITS} one-set calls), the state valid and its root the fake "
+        f"backend's; the forged 65th deposit left out, the registry unchanged "
+        f"({out['forged_s']:.3f} s); try_genesis_from_eth1 returned it at the first "
+        f"qualifying block ({out['try_genesis_s']:.3f} s); {len(results)} EF cases ok "
+        f"({len(ef_calls['calls'])} backend calls, {out['ef_s']:.3f} s); every verdict "
+        f"equal to the cpu oracle's (waited {oracle_wait_s:.1f} s); phase wall "
+        f"{out['seconds']:.1f} s; card: {card}")
+    return out
+
+
+# --- the finality phase: the chain harness past finality over the native store
+
+
+FINALITY_VALIDATORS = 64
+FINALITY_MAX_EPOCHS = 5
+FINALITY_SPANS = ("block_transition", "state_root", "store", "fork_choice")
+# the error the JAX package's harness chain gives for a block whose
+# attestation signature is forged (tests/test_torch_harness.py holds both)
+FORGED_BLOCK_ERROR = "bulk signature check failed"
+STORE_FAMILIES = ("STORE_NATIVE_REPLAYED", "STORE_NATIVE_ROLLED_BACK",
+                  "STORE_NATIVE_TRUNCATED", "STORE_FSCK_RUNS", "STORE_FSCK_FAILURES")
+
+
+def forged_harness_block(C, h, slot):
+    """A block at `slot` on the harness chain's head whose first
+    attestation carries a signature over a wrong root (a valid point):
+    (signed block, parent root)."""
+    T, PS = C.types, C.per_slot
+    parent_root = h.chain.head_root
+    parent = h.chain._states[parent_root]
+    adv = PS.process_slots(PS.clone_state(parent), slot, h.preset, h.spec)
+    atts = h.producer.attestations_for_slot(adv, slot - 1)
+    atts[0].signature = T.interop_secret_key(0).sign(wrong_root(bytes(32))).to_bytes()
+    signed, _ = h.producer.produce_block(slot, atts, base_state=parent)
+    return signed, parent_root
+
+
+def phase_finality(torch, K, TP, B, C, host, launches, card):
+    """The port's BeaconChainHarness (MINIMAL, 64 validators, signing
+    with the host oracle) on the card over a NativeStore: extend_chain
+    until the chain finalizes, every block imported with VERIFY_BULK on
+    torch_cuda; the head and checkpoints against a NO_VERIFICATION twin;
+    a forged block rejected; fsck clean; the store reopened and the chain
+    resumed from it at the same head and finalized checkpoint."""
+    T, M = C.types, C.metrics
+    preset, spec = T.MINIMAL, T.ChainSpec.minimal()
+    spe = preset.slots_per_epoch
+    t_phase = time.perf_counter()
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "finality",
+                        f"chain-{os.getpid()}.db")
+    if os.path.exists(path):
+        os.remove(path)
+    store0 = {name: getattr(M, name).value for name in STORE_FAMILIES}
+    kv = C.native_kv.NativeStore(path)
+    h = C.harness.BeaconChainHarness(FINALITY_VALIDATORS, preset, spec, sign=True, kv=kv)
+    need(h.chain.pubkey_cache.device_table().device.type == "cuda" and
+         h.strategy == C.per_block.BlockSignatureStrategy.VERIFY_BULK,
+         "finality: the harness chain is not on the card or does not verify")
+    setup_s = time.perf_counter() - t_phase
+    genesis = C.per_slot.clone_state(h.producer.state)
+
+    blocks, host_s, verify_s = [], [], []
+    produce, attest = h.producer.produce_block, h.producer.attestations_for_slot
+    verify = C.bsv.BlockSignatureVerifier.verify
+
+    def produce_timed(*args, **kwargs):
+        t = time.perf_counter()
+        signed, post = produce(*args, **kwargs)
+        host_s.append(time.perf_counter() - t)
+        blocks.append(signed)
+        return signed, post
+
+    def attest_timed(*args, **kwargs):
+        t = time.perf_counter()
+        out = attest(*args, **kwargs)
+        host_s.append(time.perf_counter() - t)
+        return out
+
+    def verify_timed(self, *args, **kwargs):
+        t = time.perf_counter()
+        out = verify(self, *args, **kwargs)
+        verify_s.append(time.perf_counter() - t)
+        return out
+
+    def extend():
+        while h.finalized_epoch() < 1:
+            need(h.chain.head_state.slot < FINALITY_MAX_EPOCHS * spe,
+                 f"finality: not finalized within {FINALITY_MAX_EPOCHS} epochs")
+            h.extend_chain(1)
+        return h.chain.head_root
+
+    C.tracing.configure(clock=_WallClock())
+    C.tracing.default_tracer().reset()
+    calls = Calls(torch, K, TP, B, C, host, launches, card)
+    h.producer.produce_block, h.producer.attestations_for_slot = produce_timed, attest_timed
+    C.bsv.BlockSignatureVerifier.verify = verify_timed
+    try:
+        head, ext_calls = calls.step("finality: extend_chain", extend)
+    finally:
+        h.producer.produce_block, h.producer.attestations_for_slot = produce, attest
+        C.bsv.BlockSignatureVerifier.verify = verify
+    spans = span_ms(C, *FINALITY_SPANS)
+    n = len(blocks)
+    row = calls.rows["finality: extend_chain"]
+    need(len(ext_calls) == n and all(row["verdicts"]),
+         f"finality: {len(ext_calls)} backend calls for {n} blocks, verdicts "
+         f"{row['verdicts']}")
+    calls.replay("finality: extend_chain", ext_calls[-1]["sets"])
+
+    twin_t = time.perf_counter()
+    twin = C.beacon_chain.BeaconChain(
+        C.hot_cold.HotColdDB(C.kv.MemoryStore(), preset, spec), genesis, preset, spec)
+    NOV = C.per_block.BlockSignatureStrategy.NO_VERIFICATION
+    for b in blocks:
+        twin.slot_clock.set_slot(b.message.slot)
+        twin.process_block(b, strategy=NOV)
+    need(chain_view(C, h.chain) == chain_view(C, twin),
+         "finality: head or checkpoints differ from the NO_VERIFICATION twin's")
+    twin_s = time.perf_counter() - twin_t
+
+    slot = int(h.chain.head_state.slot) + 1
+    forged, parent_root = forged_harness_block(C, h, slot)
+
+    def forged_import():
+        h.chain.slot_clock.set_slot(slot)
+        try:
+            h.chain.process_block(forged, strategy=h.strategy)
+        except C.beacon_chain.BlockError as e:
+            return str(e)
+        return None
+
+    err, _ = calls.step("finality: forged block", forged_import, [
+        len(forged.message.body.attestations) + 2])
+    need(err == FORGED_BLOCK_ERROR and h.chain.head_root == parent_root == head,
+         f"finality: forged block: error {err!r}, want {FORGED_BLOCK_ERROR!r}; head "
+         f"{'kept' if h.chain.head_root == head else 'moved'}")
+    need(calls.rows["finality: forged block"]["verdicts"] == [False],
+         "finality: the forged block's call accepted")
+
+    issues = C.fsck.run_fsck(h.chain.store)
+    need(issues == [], f"finality: fsck: {[str(i) for i in issues]}")
+    view = (h.chain.head_root, h.chain.finalized_checkpoint)
+    kv.close()
+    reopen_t = time.perf_counter()
+    kv2 = C.native_kv.NativeStore(path)
+    try:
+        resumed = C.beacon_chain.BeaconChain.from_store(
+            C.hot_cold.HotColdDB(kv2, preset, spec), preset, spec)
+        need((resumed.head_root, resumed.finalized_checkpoint) == view,
+             "finality: the chain resumed from the reopened store elsewhere")
+        issues2 = C.fsck.run_fsck(resumed.store)
+        need(issues2 == [], f"finality: fsck after reopen: {[str(i) for i in issues2]}")
+        entries = len(kv2)
+    finally:
+        kv2.close()
+    reopen_s = time.perf_counter() - reopen_t
+    oracle_wait_s = calls.check_oracle("finality")
+    store = {name: getattr(M, name).value - store0[name] for name in STORE_FAMILIES}
+    fin, jus = h.chain.finalized_checkpoint, h.chain.justified_checkpoint
+    verify_ms = sum(verify_s) * 1e3 / n
+    per_block = dict(
+        seconds=row["seconds"] / n, production_s=sum(host_s) / n, verify_ms=verify_ms,
+        transition_ms=(spans["block_transition"] + spans["state_root"]) / n - verify_ms,
+        store_ms=spans["store"] / n, fork_choice_ms=spans["fork_choice"] / n)
+    log(f"finality: {n} blocks (slots 1-{slot - 1}) imported with VERIFY_BULK, one call "
+        f"each of {sorted(set(row['calls']))} sets ({sorted(set(row['pairs']))} pairs); "
+        f"head at slot {slot - 1}, justified epoch {jus[0]}, finalized epoch {fin[0]}, "
+        f"equal to the twin's ({twin_s:.1f} s); a block: {per_block['seconds']:.3f} s, "
+        f"production (host signing, post-state root) {per_block['production_s']:.3f} "
+        f"s, verify {per_block['verify_ms']:.1f} ms, the rest of the transition + "
+        f"state root "
+        f"{per_block['transition_ms']:.1f} ms, store {per_block['store_ms']:.1f} ms, "
+        f"fork choice {per_block['fork_choice_ms']:.1f} ms; replayed "
+        f"{row['replayed_ms']:.1f} ms; card: {card}")
+    log(f"finality: the forged block rejected ({err}), head kept; fsck clean before "
+        f"close and after reopen; the reopened NativeStore ({entries} entries) resumed "
+        f"the chain at the same head and finalized checkpoint in {reopen_s:.2f} s; "
+        f"store counts {json.dumps(store)}; every verdict equal to the cpu oracle's "
+        f"(waited {oracle_wait_s:.1f} s); phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s; card: {card}")
+    return dict(blocks=n, head_slot=slot - 1, justified_epoch=int(jus[0]),
+                finalized_epoch=int(fin[0]), setup_s=setup_s, per_block=per_block,
+                extend_s=row["seconds"], replayed_ms=row["replayed_ms"], twin_s=twin_s,
+                reopen_s=reopen_s, store=store, oracle_wait_s=oracle_wait_s,
+                seconds=time.perf_counter() - t_phase)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -3559,12 +4174,14 @@ def main(argv=None) -> int:
     if "adversary" in phases:
         api.set_backend("torch_cuda")
         paths["adversary"] = phase_adversary(torch, K, TP, B, api, launches, card)
-    if any(p in phases for p in ("block", "attestations", "chain", "sync", "pool")):
+    registry_phases = ("block", "attestations", "chain", "sync", "pool")
+    if any(p in phases for p in registry_phases + ("genesis", "finality")):
         api.set_backend("torch_cuda")
         C = consensus_modules()
         with host_pool() as pool:
-            reg = registry(torch, C, HostCrypto(pool), card)
-            paths["registry"] = reg.summary
+            if any(p in phases for p in registry_phases):
+                reg = registry(torch, C, HostCrypto(pool), card)
+                paths["registry"] = reg.summary
             if "block" in phases:
                 paths["block"] = phase_block(torch, K, TP, B, C, reg, launches, card)
             if "attestations" in phases:
@@ -3576,6 +4193,12 @@ def main(argv=None) -> int:
                 paths["sync"] = phase_sync(torch, K, TP, B, C, reg, launches, card)
             if "pool" in phases:
                 paths["pool"] = phase_pool(torch, K, TP, B, C, reg, launches, card)
+            if "genesis" in phases:
+                paths["genesis"] = phase_genesis(torch, K, TP, B, C, HostCrypto(pool),
+                                                 launches, card)
+            if "finality" in phases:
+                paths["finality"] = phase_finality(torch, K, TP, B, C, HostCrypto(pool),
+                                                   launches, card)
 
     if results:
         line = []

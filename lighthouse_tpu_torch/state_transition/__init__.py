@@ -1,11 +1,16 @@
 """State transition (reference consensus/state_processing, SURVEY.md
 section 2.2): the port's copy of lighthouse_tpu/state_transition --
 per-slot/epoch/block processing, fork upgrades, the block replayer, the
-signature-set builders, and the batched BlockSignatureVerifier. genesis
-waits (ROADMAP Queue 1 item 14.2)."""
+signature-set builders, the batched BlockSignatureVerifier and genesis
+from eth1 deposits. per_epoch_mesh waits (ROADMAP Queue 1 item 13)."""
 
 from .block_signature_verifier import BlockSignatureVerifier  # noqa: F401
 from .context import BlockProcessingError, ConsensusContext  # noqa: F401
+from .genesis import (  # noqa: F401
+    initialize_beacon_state_from_eth1,
+    is_valid_genesis_state,
+    try_genesis_from_eth1,
+)
 from .per_block import (  # noqa: F401
     BlockSignatureStrategy,
     per_block_processing,

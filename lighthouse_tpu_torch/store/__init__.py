@@ -1,3 +1,4 @@
 """Hot/cold store (reference beacon_node/store): the port's copy of
-lighthouse_tpu/store's kv, metadata and hot_cold modules; native_kv and
-fsck wait (ROADMAP Queue 1 item 14.7)."""
+lighthouse_tpu/store -- kv, metadata, hot_cold, the native log-structured
+backend (native_kv, built with g++ from the port's copy of kvstore.cc)
+and the consistency checker (fsck)."""

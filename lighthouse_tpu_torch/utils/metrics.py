@@ -250,9 +250,13 @@ class Registry:
 # the process-global registry
 REGISTRY = Registry()
 
-# -- the BLS backend degradation family (backends/fallback.py and the
-# circuit breaker in resilience/primitives.py) ------------------------------
+# -- the resilience family (resilience/primitives.py: retries, the circuit
+# breaker, endpoint health) and BLS backend degradation (backends/fallback.py)
 
+RETRY_ATTEMPTS = REGISTRY.counter(
+    "resilience_retry_attempts_total",
+    "Operations re-attempted by a RetryPolicy",
+)
 BREAKER_TRANSITIONS = REGISTRY.counter(
     "resilience_breaker_transitions_total",
     "Circuit-breaker state transitions (closed/open/half-open)",
@@ -264,6 +268,11 @@ BLS_FALLBACK_EVENTS = REGISTRY.counter(
 BLS_USING_FALLBACK = REGISTRY.gauge(
     "bls_backend_using_fallback",
     "1 while BLS verification is degraded to the fallback backend",
+)
+ENDPOINT_HEALTH = REGISTRY.labeled_gauge(
+    "resilience_endpoint_health_score",
+    "Recent-outcome health score per tracked endpoint (0..1)",
+    label="endpoint",
 )
 
 # -- the verification-pipeline family (crypto/bls/pipeline.py and the
@@ -321,7 +330,7 @@ BLOCKS_REJECTED = REGISTRY.counter(
     "beacon_blocks_rejected_total", "Blocks rejected on import"
 )
 
-# -- the store's write-ahead journal (store/kv.py) ---------------------------
+# -- the store: write-ahead journal (store/kv.py), fsck, the native log ------
 
 STORE_JOURNAL_REPLAYS = REGISTRY.counter(
     "store_journal_replays_total",
@@ -332,6 +341,28 @@ STORE_JOURNAL_ROLLBACKS = REGISTRY.counter(
     "store_journal_rollbacks_total",
     "Torn/uncommitted write-ahead batches discarded on store reopen (the "
     "crash hit the intent write; the batch never happened)",
+)
+STORE_FSCK_RUNS = REGISTRY.counter(
+    "store_fsck_runs_total", "db fsck consistency walks"
+)
+STORE_FSCK_FAILURES = REGISTRY.counter(
+    "store_fsck_issues_total", "Consistency violations found by db fsck"
+)
+# NativeStore (store/native_kv.py) open-time recovery outcomes: the native
+# twin of the journal counters above, read back from the C side via
+# kv_recovery_stats at every open.
+STORE_NATIVE_REPLAYED = REGISTRY.counter(
+    "store_native_replayed_batches_total",
+    "Committed native-log batches re-applied during store open replay",
+)
+STORE_NATIVE_ROLLED_BACK = REGISTRY.counter(
+    "store_native_rolled_back_batches_total",
+    "Uncommitted native-log batches dropped during store open replay "
+    "(the crash hit between BATCH_BEGIN and BATCH_COMMIT)",
+)
+STORE_NATIVE_TRUNCATED = REGISTRY.counter(
+    "store_native_truncated_bytes_total",
+    "Torn native-log tail bytes truncated during store open replay",
 )
 
 # -- the gossip attestation batch family (chain/attestation_verification.py,

@@ -6,8 +6,12 @@ report, the host side of the block and attestations phases at MINIMAL
 through the processor, the bisection bound), and of the chain phase (a
 block built with its state root imports, a 4-block segment links and
 verifies in one call of all its sets, the forged segment is rejected,
-the oracle's verdict over parts). (The script itself needs a card:
-`python3 chip_smoke.py`.)"""
+the oracle's verdict over parts), of the sync and pool phases, and of
+the genesis and finality phases (the deposits and their tree, the EF
+tree's BLS cases through the port's walker on the cpu oracle, the
+harness's first blocks over a NativeStore, a forged block, fsck and the
+store reopened). (The script itself needs a card: `python3
+chip_smoke.py`.)"""
 
 import importlib.util
 import re
@@ -188,7 +192,8 @@ def test_pipeline_phase_runs_last_on_warmed_buckets():
     assert set(CS.ALL_PHASES[:at]) >= {"gossip", "aggregate", "warm", "table"}
     # after it only the phases that reuse none of its state
     assert CS.ALL_PHASES[at + 1:] == ("monolith", "windowed", "correct", "adversary",
-                                      "block", "attestations", "chain", "sync", "pool")
+                                      "block", "attestations", "chain", "sync", "pool",
+                                      "genesis", "finality")
     warm = set(B.DEFAULT_WARM_BUCKETS)
     assert [b for b in CS.PIPELINE_BUCKETS if b not in warm] == [(1024, 4, 32)]
     assert (16, 4, 16) in warm and S.warm_capacity(64) == 64
@@ -403,13 +408,14 @@ def test_windowed_phase_runs_a_child_with_the_switch(monkeypatch, rc, fails):
 
 def test_block_and_attestations_phases_run_last():
     """Last but for the chain phase, which imports the block phase's block,
-    and the sync and pool phases, which go on from its chain."""
-    assert CS.ALL_PHASES[-5:-3] == ("block", "attestations")
+    the sync and pool phases, which go on from its chain, and the genesis
+    and finality phases, which run over their own MINIMAL chains."""
+    assert CS.ALL_PHASES[-7:-5] == ("block", "attestations")
     assert "block " in CS.__doc__ and "attestations " in CS.__doc__
     assert CS.BLOCK_VALIDATORS // 32 // 128 == 4 and CS.BLOCK_DISTINCT_KEYS >= 1024
     assert (CS.GOSSIP_UNAGGREGATED, CS.GOSSIP_AGGREGATES) == (64, 32)
     assert [len(b) for b in CS.FORGED_UNAGGREGATED] == [1, 3]
-    assert [len(b) for b in CS.FORGED_AGGREGATES] == [1, 3]
+    assert [len(b) for b in CS.FORGED_AGGREGATES] == [1]
 
 
 @pytest.mark.parametrize("k, n, bound", [
@@ -525,7 +531,7 @@ def test_gossip_through_the_processor_isolates_forgeries(minimal_chain):
 
 def test_chain_phase_runs_after_block_and_attestations():
     """It imports the block phase's block, over the registry they share."""
-    assert CS.ALL_PHASES[-5:-2] == ("block", "attestations", "chain")
+    assert CS.ALL_PHASES[-7:-4] == ("block", "attestations", "chain")
     assert "chain " in CS.__doc__
     assert CS.CHAIN_SEGMENT == 4 and 0 < CS.CHAIN_FORGED < CS.CHAIN_SEGMENT
 
@@ -744,11 +750,11 @@ def test_chain_verdicts_on_the_card(minimal_import, backend):
 def test_sync_and_pool_phases_run_last_on_the_chain():
     """They go on from the chain phase's chain: asked for without it, the
     script stops before it touches a card."""
-    assert CS.ALL_PHASES[-2:] == ("sync", "pool")
+    assert CS.ALL_PHASES[-4:-2] == ("sync", "pool")
     assert "sync " in CS.__doc__ and "pool " in CS.__doc__
     with pytest.raises(SystemExit, match="chain"):
         CS.main(["--phases", "build,sync"])
-    assert [len(b) for b in CS.SYNC_FORGED_MESSAGES] == [1, 3]
+    assert [len(b) for b in CS.SYNC_FORGED_MESSAGES] == [1]
     assert [len(b) for b in CS.SYNC_FORGED_CONTRIBUTIONS] == [1, 3]
     assert max(max(b) for b in CS.SYNC_FORGED_CONTRIBUTIONS) < 4 * CS.SYNC_AGGREGATORS
     assert (CS.POOL_BATCH, CS.POOL_AGGREGATES) == (64, 32)
@@ -906,3 +912,155 @@ def test_pool_phase_confirmable_aggregates_confirm_by_lookup(minimal_head, backe
     t = C.types.types_for(preset)
     assert all(all(naive.get_aggregate(t, a.data).aggregation_bits) for a in unagg)
 
+
+
+# --- the genesis and finality phases' host side, at MINIMAL ---------------------
+
+
+def test_genesis_and_finality_phases_run_last():
+    """After the pool phase, each over its own MINIMAL chain; every call
+    kind they add runs the pairs expected_launches is held to."""
+    assert CS.ALL_PHASES[-2:] == ("genesis", "finality")
+    assert "genesis " in CS.__doc__ and "finality " in CS.__doc__
+    assert CS.GENESIS_DEPOSITS == 64 and 0 < CS.GENESIS_FORGED_AT < CS.GENESIS_DEPOSITS
+    assert CS.EF_KINDS == ("verify", "fast_aggregate_verify", "aggregate_verify",
+                           "batch_verify")
+    assert CS.FINALITY_VALIDATORS == 64 and CS.FINALITY_MAX_EPOCHS == 5
+
+
+@pytest.mark.parametrize("kind, keys, pairs", [("aggregate", 3, 5), ("aggregate", 64, 65),
+                                               ("sets", 1, 5), ("sets", 3, 5)])
+def test_backend_calls_record_every_call_kind_with_its_pairs(monkeypatch, kind, keys,
+                                                              pairs):
+    """A deposit, a verify or a batch reaches torch_cuda's dispatch (its
+    pairs off the Miller-pairs counter: n_b + 1); an aggregate_verify its
+    own entry (the keys' bucket + 1): both are recorded, and a verify of
+    those pairs launches what expected_launches says."""
+    from lighthouse_tpu_torch.crypto.bls.backends import torch_cuda as B
+    from lighthouse_tpu_torch.utils import metrics as M
+
+    def dispatch(sets, *a, **kw):
+        M.BLS_MILLER_PAIRS.inc(B._bucket(len(sets)) + 1)
+        return True
+
+    monkeypatch.setattr(B, "dispatch_verify_signature_sets", dispatch)
+    monkeypatch.setattr(B, "aggregate_verify", lambda sig, pks, msgs, **kw: False)
+    with CS.backend_calls(B, M) as calls:
+        if kind == "aggregate":
+            B.aggregate_verify("sig", ["pk"] * keys, [b"m"] * keys)
+        else:
+            B.dispatch_verify_signature_sets(["set"] * keys)
+    assert B.aggregate_verify is not None and len(calls) == 1
+    (c,) = calls
+    assert c["pairs"] == pairs and (("agg" in c) is (kind == "aggregate"))
+    assert CS.expected_launches(TP, pairs)["fp12_mul"] == 35 + (pairs - 1).bit_length()
+
+
+def test_host_oracle_jobs_run_once_for_equal_batches():
+    calls = []
+
+    def job(*args):
+        calls.append(args)
+        return len(calls)
+
+    host = CS.HostCrypto()
+    assert host._submit(job, [1], b"m")() == 1
+    assert host._submit(job, [1], b"m")() == 1
+    assert host._submit(job, [2], b"m")() == 2 and len(calls) == 2
+
+
+@pytest.fixture(scope="module")
+def genesis_parts():
+    C = CS.consensus_modules()
+    spec = C.types.ChainSpec.minimal()
+    datas = CS.genesis_deposit_data(C, spec, 4, CS.HostCrypto(), forged=(2,))
+    return C, spec, datas
+
+
+def test_genesis_phase_deposits_and_their_tree(genesis_parts):
+    """Interop deposits at a full stake, each signed over the deposit
+    domain but the forged one; each deposit's branch proves it against
+    the root of the deposits up to it, as genesis replays them."""
+    C, spec, datas = genesis_parts
+    from lighthouse_tpu_torch.crypto.bls.backends import cpu
+
+    tree, deposits = CS.deposit_list(C, datas)
+    assert tree.root() == tree.root(4) and len(deposits) == 4
+    for i, d in enumerate(deposits):
+        assert C.per_block._verify_merkle_branch(
+            d.data.tree_hash_root(), d.proof,
+            C.types.MINIMAL.deposit_contract_tree_depth + 1, i, tree.root(i + 1))
+        s = C.signature_sets.deposit_signature_set(d.data, spec)
+        assert cpu.verify_signature_sets([s], seed=1) is (i != 2)
+        assert d.data.amount == spec.max_effective_balance
+    blocks = CS.genesis_eth1_blocks(spec, CS.ETH1_BLOCK_HASH, 64)
+    qualifying = [b for b in blocks if b[1] + spec.genesis_delay >= spec.min_genesis_time
+                  and b[2] >= spec.min_genesis_active_validator_count]
+    assert qualifying[0] == (CS.ETH1_BLOCK_HASH, spec.min_genesis_time, 64)
+    service = CS.genesis_service(tree, datas, blocks)
+    assert service.block_cache[2].hash == CS.ETH1_BLOCK_HASH
+
+
+def test_ef_tree_bls_cases_pass_the_ports_walker_on_the_cpu_oracle(genesis_parts,
+                                                                    tmp_path):
+    """Every kind of the official BLS suite for the four handlers, each
+    case's expected output what the cpu oracle gives through the port's
+    walker; the tree in the official layout."""
+    C = genesis_parts[0]
+    saved = (C.api._BACKEND, C.api._BACKEND_NAME, C.api._DEVICE)
+    C.api.set_backend("cpu")
+    try:
+        cases = CS.write_ef_tree(C, str(tmp_path), CS.HostCrypto())
+        results = C.ef_tests.run_tree(str(tmp_path))
+    finally:
+        C.api._BACKEND, C.api._BACKEND_NAME, C.api._DEVICE = saved
+    kinds = {h: sorted(Path(d).name[len(h) + 1:] for d in cases
+                       if Path(d).parts[-3] == h) for h in CS.EF_KINDS}
+    assert kinds == {
+        "verify": ["infinity_pubkey_and_infinity_signature", "tampered_signature",
+                   "valid", "wrong_pubkey"],
+        "fast_aggregate_verify": ["extra_pubkey", "infinity_pubkey",
+                                  "na_pubkeys_and_infinity_signature",
+                                  "na_pubkeys_and_zero_signature", "tampered_signature",
+                                  "valid"],
+        "aggregate_verify": ["infinity_pubkey", "na_pubkeys_and_infinity_signature",
+                             "na_pubkeys_and_zero_signature", "tampered_signature",
+                             "valid"],
+        "batch_verify": ["invalid_set", "tampered_signature", "valid"]}
+    assert len(results) == len(cases) == 18 and all(r.ok for r in results), [
+        r for r in results if not r.ok]
+
+
+def test_finality_phase_harness_over_a_native_store(tmp_path):
+    """The finality phase's harness on the CPU: its first 2 blocks signed
+    and imported on `fake`, the forged block refused on the cpu oracle
+    with FORGED_BLOCK_ERROR and the head kept; fsck clean; the reopened
+    NativeStore resumes the chain at the same head."""
+    C = CS.consensus_modules()
+    T = C.types
+    saved = (C.api._BACKEND, C.api._BACKEND_NAME, C.api._DEVICE)
+    C.api.set_backend("fake")
+    path = str(tmp_path / "chain.db")
+    kv = C.native_kv.NativeStore(path)
+    try:
+        h = C.harness.BeaconChainHarness(CS.FINALITY_VALIDATORS, T.MINIMAL,
+                                         T.ChainSpec.minimal(), sign=True, kv=kv,
+                                         device="cpu")
+        head = h.extend_chain(2)
+        forged, parent = CS.forged_harness_block(C, h, 3)
+        assert parent == head and len(forged.message.body.attestations) == 2
+        C.api.set_backend("cpu")
+        h.chain.slot_clock.set_slot(3)
+        with pytest.raises(C.beacon_chain.BlockError, match=CS.FORGED_BLOCK_ERROR):
+            h.chain.process_block(forged, strategy=h.strategy)
+        assert h.chain.head_root == head
+        assert C.fsck.run_fsck(h.chain.store) == []
+        kv.close()
+        kv = C.native_kv.NativeStore(path)
+        resumed = C.beacon_chain.BeaconChain.from_store(
+            C.hot_cold.HotColdDB(kv, T.MINIMAL, h.spec), T.MINIMAL, h.spec, device="cpu")
+        assert resumed.head_root == head
+        assert resumed.finalized_checkpoint == h.chain.finalized_checkpoint
+    finally:
+        kv.close()
+        C.api._BACKEND, C.api._BACKEND_NAME, C.api._DEVICE = saved

@@ -3,9 +3,11 @@ public function, class or constant defined at the top level of
 lighthouse_tpu/crypto/bls/tpu/{limbs,tower,curve,pairing,hash_to_curve}.py
 and backends/jax_tpu.py has a same-named counterpart in the port's
 gpu/ modules and backends/torch_cuda.py, and so has every one of the
-consensus modules the port copies (ssz/, types/, utils/, the ported
-state_transition/, store/, fork_choice/, chain/, pool/, processor/ and
-speculate/ modules; execution_layer/execution_layer.py in part); every
+consensus modules the port copies (ssz/, types/, utils/, state_transition/ but
+per_epoch_mesh,
+store/, fork_choice/, chain/, pool/, processor/, speculate/, resilience/,
+harness/ and ef_tests.py; eth1/deposit_tree.py, network/snappy.py;
+execution_layer/execution_layer.py in part); every
 name a package `__init__.py` of those exports is exported by the port's,
 or stands on the list below with the ROADMAP item that brings it, and
 ROADMAP.md names it. The JAX files are parsed, not imported: nothing
@@ -63,6 +65,10 @@ CONSUMERS = {
         "processor/reprocess.py", "pool/max_cover.py", "pool/naive_aggregation.py",
         "pool/operation_pool.py", "speculate/precompute.py", "speculate/scheduler.py",
         "speculate/__init__.py", "ssz/merkle_proof.py", "chain/light_client.py",
+        "eth1/deposit_tree.py", "state_transition/genesis.py", "network/snappy.py",
+        "ef_tests.py", "harness/chain.py", "harness/beacon_chain_harness.py",
+        "store/fsck.py", "store/native_kv.py", "resilience/faults.py",
+        "resilience/crash.py", "resilience/primitives.py",
     )
 }
 
@@ -76,12 +82,21 @@ PARTIAL = {
 
 # names a JAX package __init__ exports that the port's does not yet, and
 # the ROADMAP item that brings each
-_ST = "state_transition/genesis.py (ROADMAP Queue 1 item 14.2)"
 _EL = "execution_layer/ (ROADMAP Queue 1 item 14.8)"
 WAITING = {
-    "state_transition/__init__.py": dict.fromkeys((
-        "initialize_beacon_state_from_eth1", "is_valid_genesis_state",
-        "try_genesis_from_eth1"), _ST),
+    "eth1/__init__.py": dict.fromkeys((
+        "Eth1RpcServer", "JsonRpcEth1Provider", "decode_deposit_log_data",
+        "encode_deposit_log_data", "Eth1Block", "Eth1ProviderError", "Eth1Service",
+        "FallbackEth1Provider", "MockEth1Provider", "NoEth1ProviderAvailable"),
+        "eth1/{jsonrpc,service}.py (ROADMAP Queue 1 item 14.8, step 5)"),
+    "network/__init__.py": dict.fromkeys((
+        "GossipMessage", "MessageBus", "topic_name", "BLOCKS_BY_RANGE", "BLOCKS_BY_ROOT",
+        "STATUS_PROTOCOL", "NetworkNode", "Simulator", "SyncManager", "Bootnode",
+        "WireBus", "WireCodec"), "network/ (ROADMAP Queue 1 item 14.8, step 5)"),
+    "harness/__init__.py": dict.fromkeys((
+        "PLANS", "InvariantViolation", "Phase", "ScenarioPlan", "SLO",
+        "assert_bit_identical_replay", "run_scenario"),
+        "harness/scenario.py (ROADMAP Queue 1 item 14.8, step 5)"),
     "execution_layer/__init__.py": dict.fromkeys((
         "JwtError", "JwtKey", "generate_token", "validate_token", "BuilderError",
         "BuilderHttpClient", "BuilderHttpServer", "MockBuilder", "NoBidAvailable",
@@ -95,7 +110,8 @@ WAITING = {
 INITS = ("ssz/__init__.py", "types/__init__.py", "state_transition/__init__.py",
          "chain/__init__.py", "pool/__init__.py", "processor/__init__.py",
          "fork_choice/__init__.py", "store/__init__.py",
-         "execution_layer/__init__.py", "speculate/__init__.py")
+         "execution_layer/__init__.py", "speculate/__init__.py", "eth1/__init__.py",
+         "network/__init__.py", "harness/__init__.py", "resilience/__init__.py")
 
 
 def _public_names(path: Path) -> set:

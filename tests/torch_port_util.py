@@ -193,3 +193,22 @@ def jax_keys_from_port(monkeypatch):
     # the signature-set builders' registry getter decompresses the same keys
     monkeypatch.setattr(JSS, "_decompress", _Decompressed.from_bytes)
     return keypair
+
+
+def jax_keys_decompressed(monkeypatch):
+    """Let the JAX package decompress public keys from bytes without the
+    subgroup check (~0.18 s a key), through `api.PublicKey.from_bytes`
+    and the signature-set builders that call it (deposits); the infinity
+    key is still refused. For keys the port made, which are valid."""
+    from lighthouse_tpu.crypto.bls import api as japi
+    from lighthouse_tpu.crypto.bls import curve_ref as JC
+    from lighthouse_tpu.state_transition import signature_sets as JSS
+
+    def from_bytes(cls, data):
+        point = JC.g1_from_bytes(bytes(data))
+        if point.inf:
+            raise japi.BlsError("public key is the point at infinity")
+        return cls(point, bytes(data), subgroup_checked=True)
+
+    monkeypatch.setattr(japi.PublicKey, "from_bytes", classmethod(from_bytes))
+    monkeypatch.setattr(JSS, "PublicKey", japi.PublicKey)
