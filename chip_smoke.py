@@ -240,6 +240,47 @@ Phases (each one fails the run with a nonzero exit):
              transition, store and fork choice. In both phases every
              call's launches are held to expected_launches and every
              verdict to the cpu oracle's
+  merge      blocks past the merge, every verify on torch_cuda, the
+             engine an in-process MockExecutionEngine behind an
+             EngineRpcServer on a free localhost port, reached by the
+             ExecutionLayer over HttpJsonRpcEngine with JWT (no retry
+             policy: an engine that cannot be reached fails the import).
+             (a) MAINNET over the registry: its genesis root the same
+             under ChainSpec.interop(altair 0, bellatrix 1) with the
+             mock's terminal block as the terminal block hash; a
+             BeaconChain on it, its table on the card, imports (through
+             chain.process_block, one call of 131 sets each) the
+             merge-transition block at 32 (process_epoch over 16,384
+             validators and the bellatrix upgrade on the way; payload
+             built on the terminal block before the block is signed) and
+             payload-bearing blocks at 33 and 34: every payload VERIFIED,
+             the head's known to the engine, the transition block not
+             optimistic; then a block whose payload hash is tampered
+             (re-signed: its call True, then PayloadInvalid with no engine
+             request) and one with a forged attestation signature (False);
+             the head the NO_VERIFICATION twin's. Printed a block: sets,
+             keys, pairs, first-call s, replayed ms, the transition, state
+             root, store and fork-choice spans, the engine's newPayload
+             round trip, the host ms to build the payload and to sign.
+             (b) MINIMAL, BeaconChainHarness(64, sign=True) under
+             ChainSpec.interop(altair 1, bellatrix 2) over the same rig:
+             the fork crossing (3 epochs, a call a block, every bellatrix
+             payload in the engine's log); two children of the head
+             imported while the engine reports SYNCING (OPTIMISTIC), a
+             third beside them, the first's payload marked invalid and
+             the head reorged onto the third; a MockBuilder behind a
+             BuilderHttpServer with 64 registrations over HTTP,
+             InProcessBeaconNode.produce_blinded_block checking the bid
+             on the card (one set), the signed blinded block unblinded
+             and imported, a bid with its value raised refused ("bad
+             builder bid signature", False); a MockEth1Provider behind an
+             Eth1RpcServer read by JsonRpcEth1Provider into an
+             Eth1Service, the beacon node voting a voting period's
+             majority and packing the 2 owed deposits into the block that
+             wins the vote: the honest one's key validator 64 and a row
+             of the card's table equal to its host-packed limbs, the one
+             signed over a wrong root skipped. Every server is stopped
+             when the phase ends
 
 The entry points run each stage as a CUDA graph: in every path the first
 verify of a batch captures its stages and the verifies after it replay
@@ -278,7 +319,7 @@ ALL_PHASES = (
     "build", "kernels", "parity", "gossip", "aggregate", "warm", "table",
     "aggverify", "graphs", "pipeline", "monolith", "windowed", "correct",
     "adversary", "block", "attestations", "chain", "sync", "pool", "genesis",
-    "finality",
+    "finality", "merge",
 )
 # run only as the windowed phase's child process
 CHILD_PHASES = ("windowed-child",)
@@ -1856,7 +1897,8 @@ FORGED_AGGREGATES = ((11,),)
 
 def consensus_modules():
     """The port's consensus modules that the block, attestations, chain,
-    sync, pool, genesis and finality phases drive, as one namespace."""
+    sync, pool, genesis, finality and merge phases drive, as one
+    namespace."""
     import importlib
     from types import SimpleNamespace
 
@@ -1877,7 +1919,9 @@ def consensus_modules():
         genesis="state_transition.genesis", deposit_tree="eth1.deposit_tree",
         signature_sets="state_transition.signature_sets", ef_tests="ef_tests",
         snappy="network.snappy", harness="harness", native_kv="store.native_kv",
-        fsck="store.fsck",
+        fsck="store.fsck", execution_layer="execution_layer",
+        builder="execution_layer.builder", eth1="eth1",
+        beacon_node="validator_client.beacon_node",
     )
     return SimpleNamespace(**{
         k: importlib.import_module("lighthouse_tpu_torch." + v)
@@ -2064,9 +2108,11 @@ def wrong_root(root):
 
 
 def produce_block(C, state, preset, spec, secret_of, host, forge=None, attest=True,
-                  forge_proposal=False, attestations=None, sync_aggregate=None):
-    """One SignedBeaconBlockAltair at `state.slot` (slot processing done)
-    and its post-state: an attestation of every committee of the slots it
+                  forge_proposal=False, attestations=None, sync_aggregate=None,
+                  payload=None):
+    """One signed block of `state`'s fork (altair; bellatrix with
+    `payload`, its execution payload) at `state.slot` (slot processing
+    done) and its post-state: an attestation of every committee of the slots it
     may include (the inclusion window, at most MAX_ATTESTATIONS), all bits
     set; one more aggregate of each committee of the last slot over
     another bit subset (its member k dropped), as blocks do carry, while
@@ -2129,15 +2175,16 @@ def produce_block(C, state, preset, spec, secret_of, host, forge=None, attest=Tr
         sync_aggregate = t.SyncAggregate(
             sync_committee_bits=tuple(True for _ in members),
             sync_committee_signature=sigs[-2])
-    body = t.BeaconBlockBodyAltair(
+    block_cls, signed_cls, body_cls = C.containers.block_classes_for(t, state.fork_name)
+    body = body_cls(
         randao_reveal=sigs[-1], eth1_data=state.eth1_data, attestations=tuple(atts),
-        sync_aggregate=sync_aggregate)
-    block = t.BeaconBlockAltair(slot=slot, proposer_index=proposer,
-                                parent_root=parent_root, state_root=bytes(32),
-                                body=body)
+        sync_aggregate=sync_aggregate,
+        **({} if payload is None else dict(execution_payload=payload)))
+    block = block_cls(slot=slot, proposer_index=proposer, parent_root=parent_root,
+                      state_root=bytes(32), body=body)
     post = C.per_slot.clone_state(state)
     C.per_block.per_block_processing(
-        post, t.SignedBeaconBlockAltair(message=block),
+        post, signed_cls(message=block),
         preset, spec, strategy=C.per_block.BlockSignatureStrategy.NO_VERIFICATION,
         verified_proposer_index=proposer)
     block.state_root = C.ssz.cached_root(post)
@@ -2145,7 +2192,7 @@ def produce_block(C, state, preset, spec, secret_of, host, forge=None, attest=Tr
     root = T.compute_signing_root(block, domain)
     signature, = host.sign([([secret_of(proposer)],
                                wrong_root(root) if forge_proposal else root)])
-    return t.SignedBeaconBlockAltair(message=block, signature=signature), post
+    return signed_cls(message=block, signature=signature), post
 
 
 def forge_attestation(C, state, preset, spec, secret_of, block, k, host):
@@ -4070,6 +4117,489 @@ def phase_finality(torch, K, TP, B, C, host, launches, card):
                 seconds=time.perf_counter() - t_phase)
 
 
+# --- the merge phase: blocks past the merge over the engine API, the builder, eth1
+
+
+MERGE_BLOCKS = 3  # the merge-transition block at BLOCK_SLOT + 1 (32) and two more
+MERGE_FORGED = 7  # the forged block's attestation signed over a wrong root
+MERGE_SPANS = ("block_transition", "state_root", "store", "fork_choice")
+MERGE_VALIDATORS = 64  # the MINIMAL part's registry (ChainSpec.interop's genesis count)
+MERGE_JWT_SECRET = bytes(range(32))  # the engine rig's HS256 key
+RIG_TIMEOUT_S = 5.0  # every rig client's socket timeout
+# the error the builder path gives a bid whose signature does not verify
+BAD_BID_ERROR = "bad builder bid signature"
+
+
+def engine_rig(C, types, stack):
+    """The execution side of a merge chain: a MockExecutionEngine behind
+    an EngineRpcServer on a free port of localhost (JWT checked on every
+    request), and an ExecutionLayer that reaches it over HttpJsonRpcEngine,
+    building the transition payload on the mock's terminal block. No
+    retry policy: an engine that cannot be reached fails the import. The
+    server is stopped by `stack`. Every notify_new_payload's (block hash,
+    status, ms) is appended to `el.notified`."""
+    X = C.execution_layer
+    engine = X.MockExecutionEngine(types)
+    key = X.JwtKey(MERGE_JWT_SECRET)
+    server = X.EngineRpcServer(engine, key).start()
+    stack.callback(server.stop)
+    el = X.ExecutionLayer(
+        X.HttpJsonRpcEngine(server.url, key, types.ExecutionPayload, retries=1,
+                            timeout_s=RIG_TIMEOUT_S),
+        pre_merge_parent_hash=engine.genesis_hash)
+    notify, el.notified = el.notify_new_payload, []
+
+    def timed(payload):
+        t = time.perf_counter()
+        status = notify(payload)
+        el.notified.append((bytes(payload.block_hash), status,
+                            (time.perf_counter() - t) * 1e3))
+        return status
+
+    el.notify_new_payload = timed
+    return engine, server, el
+
+
+def notified_since(C, el, n, want, label):
+    """The notifies after the first `n`: each status `want` (VERIFIED for
+    honest payloads). Returns their engine round-trip ms."""
+    got = el.notified[n:]
+    need(got and all(s is want for _, s, _ in got),
+         f"{label}: payload statuses {[s.value for _, s, _ in got]}, want {want.value}")
+    return [ms for _, _, ms in got]
+
+
+def merge_spec(C, engine):
+    """MAINNET's merge chain: altair at genesis (so the registry's genesis
+    serves), bellatrix at epoch 1, and the mock engine's terminal block
+    as the spec's terminal block hash, which validate_merge_block holds
+    the transition payload's parent to."""
+    import dataclasses
+
+    return dataclasses.replace(
+        C.types.ChainSpec.interop(altair_fork_epoch=0, bellatrix_fork_epoch=1),
+        terminal_block_hash=engine.genesis_hash, terminal_block_hash_activation_epoch=0)
+
+
+def merge_mainnet(torch, B, C, reg, calls, card):
+    """Part (a): the merge-transition block and two payload-bearing
+    blocks at MAINNET over the registry's 16,384 validators, each
+    imported with one backend call on the card, their payloads VERIFIED
+    by the engine over HTTP and JWT; a block with a tampered payload hash
+    and one with a forged attestation signature rejected."""
+    T, PS, X = C.types, C.per_slot, C.execution_layer
+    preset, host = reg.preset, reg.host
+    t = T.types_for(preset)
+    out = {}
+    with contextlib.ExitStack() as stack:
+        engine, server, el = engine_rig(C, t, stack)
+        spec = merge_spec(C, engine)
+        t0 = time.perf_counter()
+        genesis, _ = registry_state(C, preset, spec, BLOCK_VALIDATORS, BLOCK_DISTINCT_KEYS,
+                                    host)
+        need(C.ssz.cached_root(genesis) == C.ssz.cached_root(reg.genesis),
+             "merge: the registry's genesis differs under the merge spec")
+        out["genesis_check_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        chain = C.beacon_chain.BeaconChain(
+            C.hot_cold.HotColdDB(C.kv.MemoryStore(), preset, spec), reg.genesis,
+            preset, spec)
+        chain.execution_layer = el
+        need(chain.pubkey_cache.device_table().device.type == "cuda" and
+             C.api.get_backend_name() == "torch_cuda",
+             "merge: the chain's pubkey table is not on the card or the backend "
+             f"is {C.api.get_backend_name()}")
+        out["chain_init_s"] = time.perf_counter() - t0
+        log(f"merge: {preset.name}, bellatrix at epoch 1: the registry's genesis root the "
+            f"same under the merge spec ({out['genesis_check_s']:.1f} s), a BeaconChain "
+            f"on it with its table on the card ({out['chain_init_s']:.1f} s), the engine "
+            f"at {server.url} behind JWT; card: {card}")
+
+        verify = C.bsv.BlockSignatureVerifier.verify
+        verify_s = []
+
+        def verify_timed(self, *args, **kwargs):
+            t = time.perf_counter()
+            result = verify(self, *args, **kwargs)
+            verify_s.append(time.perf_counter() - t)
+            return result
+
+        def build(state, **kwargs):
+            """A block on `state` (slot processing done) with the payload
+            the engine builds for its proposer: (signed, post, payload ms,
+            production s)."""
+            proposer = PS.get_beacon_proposer_index(state, preset, spec)
+            t = time.perf_counter()
+            payload = el.build_payload_for_block(state, state.slot, proposer, preset, spec)
+            payload_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            signed, post = produce_block(C, state, preset, spec, reg.secret_of, host,
+                                         payload=payload, **kwargs)
+            return signed, post, payload_ms, time.perf_counter() - t
+
+        def import_(label, signed, want_error=None):
+            """One import through chain.process_block (VERIFY_BULK): one
+            backend call; the head moves to it, or stays with `want_error`."""
+            chain.slot_clock.set_slot(signed.message.slot)
+            head0 = chain.head_root
+            C.tracing.default_tracer().reset()
+            n0, verify_s[:] = len(el.notified), []
+
+            def run():
+                try:
+                    return chain.process_block(signed), None
+                except C.beacon_chain.BlockError as e:
+                    return None, str(e)
+
+            n_sets = len(signed.message.body.attestations) + 3
+            C.bsv.BlockSignatureVerifier.verify = verify_timed
+            try:
+                (root, err), step_calls = calls.step(f"merge: {label}", run, [n_sets])
+            finally:
+                C.bsv.BlockSignatureVerifier.verify = verify
+            need(err == want_error if want_error is None else
+                 (err or "").startswith(want_error),
+                 f"merge: {label}: error {err!r}, want {want_error!r}")
+            need(chain.head_root == (head0 if want_error else root),
+                 f"merge: {label}: head {'moved' if want_error else 'did not move'}")
+            row = calls.rows[f"merge: {label}"]
+            row.update(spans=span_ms(C, *MERGE_SPANS), first_call_s=sum(verify_s),
+                       notified=len(el.notified) - n0)
+            return row, step_calls
+
+        C.tracing.configure(clock=_WallClock())
+        state = PS.process_slots(PS.clone_state(reg.state), BLOCK_SLOT + 1, preset, spec)
+        need(state.fork_name == "bellatrix", f"merge: slot {state.slot} is {state.fork_name}")
+        blocks, epoch_ms = [], []
+        process_epoch = C.per_epoch.process_epoch
+
+        def timed_epoch(*args, **kwargs):
+            t = time.perf_counter()
+            process_epoch(*args, **kwargs)
+            epoch_ms.append((time.perf_counter() - t) * 1e3)
+
+        for i in range(MERGE_BLOCKS):
+            signed, post, payload_ms, production_s = build(state)
+            label = "merge-transition block" if i == 0 else f"block {signed.message.slot}"
+            C.per_epoch.process_epoch = timed_epoch
+            try:
+                row, step_calls = import_(label, signed)
+            finally:
+                C.per_epoch.process_epoch = process_epoch
+            ms = notified_since(C, el, len(el.notified) - row["notified"],
+                                X.PayloadVerificationStatus.VERIFIED, f"merge: {label}")
+            need(len(ms) == 1, f"merge: {label}: {len(ms)} engine round trips")
+            calls.replay(f"merge: {label}", step_calls[0]["sets"])
+            row.update(payload_ms=payload_ms, production_s=production_s, engine_ms=ms[0],
+                       slot=int(signed.message.slot))
+            out[label] = row
+            blocks.append(signed)
+            log(f"merge: {label} (slot {row['slot']}): {row['calls'][0]} sets, "
+                f"{row['keys'][0]} keys, {row['pairs'][0]} pairs; first call "
+                f"{row['first_call_s']:.3f} s, replayed {row['replayed_ms']:.1f} ms; span "
+                f"ms {json.dumps({k: round(v, 1) for k, v in row['spans'].items()})}; "
+                f"engine round trip {ms[0]:.1f} ms; host: payload {payload_ms:.1f} ms, "
+                f"signing and post-state root {production_s:.3f} s; card: {card}")
+            state = PS.process_slots(PS.clone_state(post), post.slot + 1, preset, spec)
+        need(len(epoch_ms) == 1 and chain.head_state.fork_name == "bellatrix",
+             f"merge: {len(epoch_ms)} epoch transitions, head {chain.head_state.fork_name}")
+        out["process_epoch_ms"] = epoch_ms[0]
+        need(not chain.optimistic_transition_blocks,
+             "merge: the transition block was imported optimistically")
+        head_hash = bytes(chain.head_state.latest_execution_payload_header.block_hash)
+        need(head_hash in engine.blocks, "merge: the head's payload is unknown to the engine")
+
+        # two forged blocks on the head: a tampered payload hash (the block
+        # re-signed, so the card accepts its signatures) and a forged
+        # attestation signature
+        honest, _, _, _ = build(state)
+        tampered = type(honest).from_ssz_bytes(honest.as_ssz_bytes())
+        payload = tampered.message.body.execution_payload
+        payload.block_hash = wrong_root(bytes(payload.block_hash))
+        domain = T.get_domain(state, T.DOMAIN_BEACON_PROPOSER,
+                              state.slot // preset.slots_per_epoch, preset)
+        tampered.signature, = host.sign([(
+            [reg.secret_of(int(tampered.message.proposer_index))],
+            T.compute_signing_root(tampered.message, domain))])
+        seen = server.requests_seen
+        row, _ = import_("tampered payload hash", tampered,
+                         want_error="invalid execution payload")
+        need(server.requests_seen == seen and row["notified"] == 0 and
+             row["verdicts"] == [True],
+             f"merge: the tampered payload reached the engine "
+             f"({server.requests_seen - seen} requests) or its signatures failed")
+        out["tampered payload hash"] = row
+        forged = forge_attestation(C, state, preset, spec, reg.secret_of, honest,
+                                   MERGE_FORGED, host)
+        row, _ = import_("forged attestation", forged,
+                         want_error="bulk signature check failed")
+        need(row["verdicts"] == [False], "merge: the forged block's call accepted")
+        out["forged attestation"] = row
+
+        twin = C.beacon_chain.BeaconChain(
+            C.hot_cold.HotColdDB(C.kv.MemoryStore(), preset, spec), reg.genesis,
+            preset, spec)
+        t0 = time.perf_counter()
+        for b in blocks:
+            twin.slot_clock.set_slot(b.message.slot)
+            twin.process_block(b, strategy=C.per_block.BlockSignatureStrategy.NO_VERIFICATION)
+        need(chain_view(C, chain) == chain_view(C, twin),
+             "merge: head or checkpoints differ from the NO_VERIFICATION twin's")
+        out["twin_s"] = time.perf_counter() - t0
+        out["requests"] = server.requests_seen
+    log(f"merge: head at slot {chain.head_state.slot} (bellatrix), its payload "
+        f"0x{head_hash.hex()[:16]} known to the engine, every payload VERIFIED over "
+        f"HTTP+JWT ({out['requests']} engine requests); process_epoch at the transition "
+        f"{out['process_epoch_ms']:.1f} ms; the tampered payload refused before the "
+        f"wire, the forged attestation False on the card; the head the twin's "
+        f"({out['twin_s']:.1f} s); card: {card}")
+    return out
+
+
+def sign_block(C, h, state, block, signed_cls):
+    """`block` (of any fork, blinded too) signed by its proposer as the
+    harness signs: the proposal domain of `state`'s epoch."""
+    T = C.types
+    domain = T.get_domain(state, T.DOMAIN_BEACON_PROPOSER,
+                          state.slot // h.preset.slots_per_epoch, h.preset)
+    return signed_cls(message=block, signature=h.producer._sign_root(
+        T.compute_signing_root(block, domain), int(block.proposer_index)))
+
+
+def merge_minimal(torch, B, C, host, calls, card):
+    """Part (b), at MINIMAL over 64 validators, as the JAX package's tests
+    drive these paths but signed: the fork crossing into bellatrix, an
+    optimistic import invalidated into a reorg, a builder's bid checked
+    on the card and its block unblinded and imported, and eth1 deposits
+    voted in and packed by the beacon node's block production."""
+    T, X, PS = C.types, C.execution_layer, C.per_slot
+    preset, spe = T.MINIMAL, T.MINIMAL.slots_per_epoch
+    spec = T.ChainSpec.interop(altair_fork_epoch=1, bellatrix_fork_epoch=2)
+    t = T.types_for(preset)
+    VERIFIED = X.PayloadVerificationStatus.VERIFIED
+    out = {}
+    with contextlib.ExitStack() as stack:
+        engine, server, el = engine_rig(C, t, stack)
+        t0 = time.perf_counter()
+        h = C.harness.BeaconChainHarness(MERGE_VALIDATORS, preset, spec, sign=True,
+                                         execution_layer=el)
+        need(h.chain.pubkey_cache.device_table().device.type == "cuda" and
+             h.strategy == C.per_block.BlockSignatureStrategy.VERIFY_BULK,
+             "merge: the harness chain is not on the card or does not verify")
+        out["setup_s"] = time.perf_counter() - t0
+
+        made, produce = [], h.producer.produce_block
+
+        def produce_recorded(*args, **kwargs):
+            signed, post = produce(*args, **kwargs)
+            made.append(signed)
+            return signed, post
+
+        h.producer.produce_block = produce_recorded
+        try:
+            _, crossing = calls.step("merge: fork crossing", lambda: h.extend_chain(3 * spe))
+        finally:
+            h.producer.produce_block = produce
+        row = calls.rows["merge: fork crossing"]
+        payloads = [bytes(b.message.body.execution_payload.block_hash) for b in made
+                    if hasattr(b.message.body, "execution_payload")]
+        engine_ms = notified_since(C, el, 0, VERIFIED, "merge: fork crossing")
+        need(len(crossing) == len(made) == 3 * spe and all(row["verdicts"]) and
+             h.chain.head_state.fork_name == "bellatrix" and
+             len(payloads) == len(made) - 2 * spe + 1 and
+             set(payloads) <= set(engine.new_payload_log),
+             f"merge: fork crossing: {len(crossing)} calls for {len(made)} blocks, head "
+             f"{h.chain.head_state.fork_name}, {len(payloads)} payloads")
+        out["fork crossing"] = dict(row, engine_ms=engine_ms)
+        log(f"merge: fork crossing phase0 -> altair -> bellatrix: {len(made)} blocks, one "
+            f"call each of {sorted(set(row['calls']))} sets, {row['seconds']:.3f} s; "
+            f"{len(payloads)} payloads, every one in the engine's new_payload_log and "
+            f"VERIFIED (round trip {min(engine_ms):.1f}-{max(engine_ms):.1f} ms); card: "
+            f"{card}")
+
+        # optimistic import, then invalidation: A and its child A2 while
+        # the engine reports SYNCING, B beside A; A's payload ruled invalid
+        base_root, base_slot = h.chain.head_root, int(h.chain.head_state.slot)
+
+        def child(slot, parent_root):
+            block, _ = h.producer.produce_block(slot, base_state=h.chain._states[parent_root])
+            h.chain.slot_clock.set_slot(slot)
+            return block, h.chain.process_block(block, strategy=h.strategy)
+
+        engine.force_syncing = 2
+        n0 = len(el.notified)
+        (block_a, root_a), _ = calls.step("merge: optimistic A", lambda: child(
+            base_slot + 1, base_root), [2])
+        (_, root_a2), _ = calls.step("merge: optimistic A2", lambda: child(
+            base_slot + 2, root_a), [2])
+        need([s for _, s, _ in el.notified[n0:]] ==
+             [X.PayloadVerificationStatus.OPTIMISTIC] * 2 and
+             h.chain.is_optimistic(root_a) and h.chain.is_optimistic(root_a2),
+             "merge: A and A2 not imported optimistically")
+        n0 = len(el.notified)
+        (_, root_b), _ = calls.step("merge: valid B", lambda: child(
+            base_slot + 3, base_root), [2])
+        notified_since(C, el, n0, VERIFIED, "merge: valid B")
+        engine.mark_invalid(bytes(block_a.message.body.execution_payload.block_hash))
+        new_head = h.chain.on_invalid_payload(root_a)
+        status_of = h.chain.fork_choice.proto.execution_status_of
+        need(new_head == root_b == h.chain.head_root and
+             status_of(root_a) == status_of(root_a2) == "invalid" and
+             status_of(root_b) != "invalid",
+             "merge: the invalidated branch kept the head")
+        log(f"merge: A and A2 imported optimistically (engine SYNCING), B VERIFIED; A's "
+            f"payload marked invalid: A and A2 invalid, the head reorged onto B "
+            f"(slot {base_slot + 3}); card: {card}")
+
+        # the builder: registrations over HTTP, a bid checked on the card,
+        # the signed blinded block unblinded and imported; a raised bid
+        builder = X.MockBuilder(el, preset, spec, chain=h.chain)
+        bserver = X.BuilderHttpServer(builder).start()
+        stack.callback(bserver.stop)
+        client = X.BuilderHttpClient(bserver.url, preset, timeout_s=RIG_TIMEOUT_S,
+                                     trusted_pubkey=builder.pubkey.to_bytes())
+        regs = [C.containers.ValidatorRegistrationV1(
+            fee_recipient=b"\xfe" * 20, gas_limit=30_000_000, timestamp=1234,
+            pubkey=bytes(v.pubkey)) for v in h.chain.head_state.validators]
+        sigs = host.sign([([T.interop_secret_key(i).scalar],
+                           C.builder.builder_signing_root(r, spec))
+                          for i, r in enumerate(regs)])
+        client.register_validators([
+            C.containers.SignedValidatorRegistration(message=r, signature=s)
+            for r, s in zip(regs, sigs)])
+        need(len(builder.registrations) == MERGE_VALIDATORS,
+             f"merge: the builder holds {len(builder.registrations)} registrations")
+        bn = C.beacon_node.InProcessBeaconNode(h.chain)
+        bn.builder = client
+        slot = int(h.chain.head_state.slot) + 1
+        h.chain.slot_clock.set_slot(slot)
+        state = h.chain.state_for_block_production(slot)
+        proposer = PS.get_beacon_proposer_index(state, preset, spec)
+        randao = h.producer._randao_reveal(state, proposer)
+        blinded, _ = calls.step("merge: blinded block (bid)",
+                                lambda: bn.produce_blinded_block(slot, randao), [1])
+        signed_blinded = sign_block(C, h, state, blinded, t.SignedBlindedBeaconBlock)
+        n0 = len(el.notified)
+        root, _ = calls.step("merge: unblinded import",
+                             lambda: bn.publish_blinded_block(signed_blinded), [2])
+        notified_since(C, el, n0, VERIFIED, "merge: unblinded import")
+        need(h.chain.head_root == root and bytes(
+            h.chain.head_state.latest_execution_payload_header.tree_hash_root()) ==
+            bytes(blinded.body.execution_payload_header.tree_hash_root()),
+             "merge: the unblinded block is not the head with the bid's header")
+        slot2 = slot + 1
+        state2 = h.chain.state_for_block_production(slot2)
+        parent_hash = bytes(state2.latest_execution_payload_header.block_hash)
+        bid = client.get_header(slot2, parent_hash, bytes(
+            state2.validators[PS.get_beacon_proposer_index(state2, preset, spec)].pubkey))
+        bid.message.value = int(bid.message.value) + 1
+
+        def check_raised():
+            try:
+                C.builder.verify_bid(bid, spec, parent_hash, trusted_pubkey=client.trusted_pubkey)
+            except X.BuilderError as e:
+                return str(e)
+            return None
+
+        err, _ = calls.step("merge: raised bid", check_raised, [1])
+        need(err == BAD_BID_ERROR and calls.rows["merge: raised bid"]["verdicts"] == [False],
+             f"merge: the raised bid: {err!r}, want {BAD_BID_ERROR!r}")
+        log(f"merge: builder at {bserver.url}: {MERGE_VALIDATORS} registrations over "
+            f"HTTP, the bid verified on the card (one set), the blinded block at slot "
+            f"{slot} unblinded and imported; the bid with its value raised refused "
+            f"({err}); card: {card}")
+
+        # eth1: a deposit contract chain behind JSON-RPC, the 64 genesis
+        # deposits, then an honest 65th and a 66th signed over a wrong
+        # root; the beacon node votes each block of the next voting period
+        datas = genesis_deposit_data(C, spec, MERGE_VALIDATORS + 2, host,
+                                     forged=(MERGE_VALIDATORS + 1,))
+        provider = C.eth1.MockEth1Provider()
+        provider.add_block(100, datas[:MERGE_VALIDATORS])
+        provider.add_block(101, datas[MERGE_VALIDATORS:])
+        for i in range(6):  # bury them past the follow distance
+            provider.add_block(102 + i)
+        eserver = C.eth1.Eth1RpcServer(provider).start()
+        stack.callback(eserver.stop)
+        svc = C.eth1.Eth1Service(C.eth1.JsonRpcEth1Provider(
+            eserver.url, retries=1, timeout_s=RIG_TIMEOUT_S))
+        svc.update()
+        need(len(svc.block_cache) == 8 and len(svc.deposit_tree.leaves) == len(datas),
+             f"merge: eth1 service cached {len(svc.block_cache)} blocks")
+        bn.eth1_service = svc
+        period = preset.slots_per_eth1_voting_period
+        first = -(-slot2 // period) * period  # the next voting period's first slot
+        majority = period // 2 + 1
+
+        def produce_and_import(slot):
+            h.chain.slot_clock.set_slot(slot)
+            state = h.chain.state_for_block_production(slot)
+            block = bn.produce_block(slot, h.producer._randao_reveal(
+                state, PS.get_beacon_proposer_index(state, preset, spec)))
+            _, signed_cls, _ = C.containers.block_classes_for(t, state.fork_name)
+            signed = sign_block(C, h, state, block, signed_cls)
+            return block, bn.publish_block(signed)
+
+        n0 = len(el.notified)
+        votes, vote_calls = calls.step("merge: eth1 votes", lambda: [
+            produce_and_import(s) for s in range(first, first + majority - 1)])
+        need(len(vote_calls) == majority - 1 and not any(b.body.deposits for b, _ in votes),
+             f"merge: {len(vote_calls)} calls for {majority - 1} voting blocks")
+        (block, root), dep_calls = calls.step(
+            "merge: deposit block", lambda: produce_and_import(first + majority - 1))
+        notified_since(C, el, n0, VERIFIED, "merge: eth1 votes")
+        state = h.chain.head_state
+        sizes = calls.rows["merge: deposit block"]["calls"]
+        need(h.chain.head_root == root and len(block.body.deposits) == 2 and
+             len(state.validators) == MERGE_VALIDATORS + 1 and
+             bytes(state.validators[MERGE_VALIDATORS].pubkey) == bytes(
+                 datas[MERGE_VALIDATORS].pubkey) and
+             int(state.eth1_deposit_index) == MERGE_VALIDATORS + 2,
+             f"merge: deposit block: {len(block.body.deposits)} deposits, "
+             f"{len(state.validators)} validators, deposit index {state.eth1_deposit_index}")
+        # production's state root checks each deposit once, import again
+        need(calls.rows["merge: deposit block"]["verdicts"] == [True, False, True, True, False]
+             and sizes == [1, 1, 2, 1, 1], f"merge: deposit block calls {sizes}, verdicts "
+             f"{calls.rows['merge: deposit block']['verdicts']}")
+        cache = h.chain.pubkey_cache
+        table = cache.device_table()
+        torch.cuda.synchronize()
+        new_row = table[MERGE_VALIDATORS].cpu()
+        need(table.device.type == "cuda" and len(cache) == MERGE_VALIDATORS + 1 and
+             torch.equal(new_row, torch.from_numpy(B._pk_limbs(cache.get(MERGE_VALIDATORS)))),
+             "merge: the new validator's key is not in the card's table as packed")
+        out.update(eth1_votes=calls.rows["merge: eth1 votes"],
+                   deposit_block=calls.rows["merge: deposit block"],
+                   included_at=int(block.slot), validators=len(state.validators),
+                   requests=server.requests_seen)
+    log(f"merge: eth1 at {eserver.url}: {majority - 1} blocks voted (one call each, "
+        f"{calls.rows['merge: eth1 votes']['seconds']:.3f} s), the {majority}th (slot "
+        f"{out['included_at']}) packed the 2 owed deposits: the honest one's key is "
+        f"validator {MERGE_VALIDATORS}, its limbs in the card's table as packed; the "
+        f"forged one skipped ({out['validators']} validators); card: {card}")
+    return out
+
+
+def phase_merge(torch, K, TP, B, C, reg, launches, card):
+    """Blocks past the merge on the card: part (a) at MAINNET, part (b)
+    at MINIMAL; every call's launches held to expected_launches and its
+    verdict to the cpu oracle's."""
+    t_phase = time.perf_counter()
+    calls = Calls(torch, K, TP, B, C, reg.host, launches, card)
+    out = dict(mainnet=merge_mainnet(torch, B, C, reg, calls, card))
+    t_minimal = time.perf_counter()
+    out["minimal"] = merge_minimal(torch, B, C, reg.host, calls, card)
+    out["oracle_wait_s"] = calls.check_oracle("merge")
+    out["seconds"] = time.perf_counter() - t_phase
+    out["mainnet"]["seconds"] = t_minimal - t_phase
+    out["minimal"]["seconds"] = out["seconds"] - out["mainnet"]["seconds"]
+    log(f"merge: every verdict equal to the cpu oracle's (waited "
+        f"{out['oracle_wait_s']:.1f} s); phase wall {out['seconds']:.1f} s (MAINNET part "
+        f"{out['mainnet']['seconds']:.1f} s, MINIMAL part {out['minimal']['seconds']:.1f} "
+        f"s, harness set-up {out['minimal']['setup_s']:.1f} s); card: {card}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -4174,7 +4704,7 @@ def main(argv=None) -> int:
     if "adversary" in phases:
         api.set_backend("torch_cuda")
         paths["adversary"] = phase_adversary(torch, K, TP, B, api, launches, card)
-    registry_phases = ("block", "attestations", "chain", "sync", "pool")
+    registry_phases = ("block", "attestations", "chain", "sync", "pool", "merge")
     if any(p in phases for p in registry_phases + ("genesis", "finality")):
         api.set_backend("torch_cuda")
         C = consensus_modules()
@@ -4199,6 +4729,8 @@ def main(argv=None) -> int:
             if "finality" in phases:
                 paths["finality"] = phase_finality(torch, K, TP, B, C, HostCrypto(pool),
                                                    launches, card)
+            if "merge" in phases:
+                paths["merge"] = phase_merge(torch, K, TP, B, C, reg, launches, card)
 
     if results:
         line = []

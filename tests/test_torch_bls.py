@@ -221,7 +221,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "crypto/bls/pairing_ref.py", "crypto/bls/backends/cpu.py",
                 "crypto/bls/backends/fake.py", "crypto/bls/backends/fallback.py",
                 "obs/ledger.py", "resilience/primitives.py", "utils/metrics.py",
-                "utils/tracing.py", "crypto/bls/adversary.py"):
+                "utils/tracing.py", "crypto/bls/adversary.py", "utils/jsonrpc.py",
+                "eth1/service.py", "eth1/jsonrpc.py", "execution_layer/keccak.py",
+                "execution_layer/rlp.py", "execution_layer/block_hash.py",
+                "execution_layer/engine_api.py", "execution_layer/auth.py",
+                "execution_layer/execution_layer.py", "execution_layer/mock_engine.py",
+                "execution_layer/http_engine.py", "execution_layer/builder.py",
+                "validator_client/beacon_node.py", "validator_client/__init__.py"):
         assert "lighthouse_tpu_torch/" + mod in walked, mod
     assert len(_port_files()) > 10
     assert not bad, bad

@@ -193,7 +193,7 @@ def test_pipeline_phase_runs_last_on_warmed_buckets():
     # after it only the phases that reuse none of its state
     assert CS.ALL_PHASES[at + 1:] == ("monolith", "windowed", "correct", "adversary",
                                       "block", "attestations", "chain", "sync", "pool",
-                                      "genesis", "finality")
+                                      "genesis", "finality", "merge")
     warm = set(B.DEFAULT_WARM_BUCKETS)
     assert [b for b in CS.PIPELINE_BUCKETS if b not in warm] == [(1024, 4, 32)]
     assert (16, 4, 16) in warm and S.warm_capacity(64) == 64
@@ -408,9 +408,10 @@ def test_windowed_phase_runs_a_child_with_the_switch(monkeypatch, rc, fails):
 
 def test_block_and_attestations_phases_run_last():
     """Last but for the chain phase, which imports the block phase's block,
-    the sync and pool phases, which go on from its chain, and the genesis
-    and finality phases, which run over their own MINIMAL chains."""
-    assert CS.ALL_PHASES[-7:-5] == ("block", "attestations")
+    the sync and pool phases, which go on from its chain, the genesis
+    and finality phases, which run over their own MINIMAL chains, and the
+    merge phase."""
+    assert CS.ALL_PHASES[-8:-6] == ("block", "attestations")
     assert "block " in CS.__doc__ and "attestations " in CS.__doc__
     assert CS.BLOCK_VALIDATORS // 32 // 128 == 4 and CS.BLOCK_DISTINCT_KEYS >= 1024
     assert (CS.GOSSIP_UNAGGREGATED, CS.GOSSIP_AGGREGATES) == (64, 32)
@@ -531,7 +532,7 @@ def test_gossip_through_the_processor_isolates_forgeries(minimal_chain):
 
 def test_chain_phase_runs_after_block_and_attestations():
     """It imports the block phase's block, over the registry they share."""
-    assert CS.ALL_PHASES[-7:-4] == ("block", "attestations", "chain")
+    assert CS.ALL_PHASES[-8:-5] == ("block", "attestations", "chain")
     assert "chain " in CS.__doc__
     assert CS.CHAIN_SEGMENT == 4 and 0 < CS.CHAIN_FORGED < CS.CHAIN_SEGMENT
 
@@ -750,7 +751,7 @@ def test_chain_verdicts_on_the_card(minimal_import, backend):
 def test_sync_and_pool_phases_run_last_on_the_chain():
     """They go on from the chain phase's chain: asked for without it, the
     script stops before it touches a card."""
-    assert CS.ALL_PHASES[-4:-2] == ("sync", "pool")
+    assert CS.ALL_PHASES[-5:-3] == ("sync", "pool")
     assert "sync " in CS.__doc__ and "pool " in CS.__doc__
     with pytest.raises(SystemExit, match="chain"):
         CS.main(["--phases", "build,sync"])
@@ -918,9 +919,10 @@ def test_pool_phase_confirmable_aggregates_confirm_by_lookup(minimal_head, backe
 
 
 def test_genesis_and_finality_phases_run_last():
-    """After the pool phase, each over its own MINIMAL chain; every call
-    kind they add runs the pairs expected_launches is held to."""
-    assert CS.ALL_PHASES[-2:] == ("genesis", "finality")
+    """After the pool phase and before merge, each over its own MINIMAL
+    chain; every call kind they add runs the pairs expected_launches is
+    held to."""
+    assert CS.ALL_PHASES[-3:-1] == ("genesis", "finality")
     assert "genesis " in CS.__doc__ and "finality " in CS.__doc__
     assert CS.GENESIS_DEPOSITS == 64 and 0 < CS.GENESIS_FORGED_AT < CS.GENESIS_DEPOSITS
     assert CS.EF_KINDS == ("verify", "fast_aggregate_verify", "aggregate_verify",
@@ -1064,3 +1066,54 @@ def test_finality_phase_harness_over_a_native_store(tmp_path):
     finally:
         kv.close()
         C.api._BACKEND, C.api._BACKEND_NAME, C.api._DEVICE = saved
+
+
+def test_merge_phase_runs_last_on_the_registry():
+    """Last; it goes on from the registry (built when merge is asked for),
+    and its MAINNET chain takes the registry's genesis unchanged: the
+    genesis root is the same with bellatrix at epoch 1 and the mock
+    engine's terminal block hash in the spec."""
+    from lighthouse_tpu_torch import execution_layer as X
+    from lighthouse_tpu_torch import types as T
+    from lighthouse_tpu_torch.ssz import cached_root
+
+    assert CS.ALL_PHASES[-1] == "merge" and "merge " in CS.__doc__
+    assert CS.MERGE_BLOCKS == 3 and CS.MERGE_VALIDATORS == 64
+    C = CS.consensus_modules()
+    engine = X.MockExecutionEngine(T.types_for(T.MINIMAL))
+    spec = CS.merge_spec(C, engine)
+    assert (spec.altair_fork_epoch, spec.bellatrix_fork_epoch) == (0, 1)
+    assert spec.terminal_block_hash == engine.genesis_hash
+    assert X.ExecutionLayer(engine).validate_merge_block(engine.genesis_hash, spec) is True
+    base = T.ChainSpec.interop(altair_fork_epoch=0)
+    assert cached_root(T.interop_genesis_state(16, T.MINIMAL, spec)) == cached_root(
+        T.interop_genesis_state(16, T.MINIMAL, base))
+
+
+def test_engine_rig_times_every_notify_and_stops():
+    """The merge phase's engine rig: a mock engine behind JWT HTTP, every
+    notify_new_payload's (hash, status, ms) recorded; the server is
+    stopped with the phase's ExitStack."""
+    import contextlib
+    import urllib.request
+
+    from lighthouse_tpu_torch import types as T
+
+    C = CS.consensus_modules()
+    t = T.types_for(T.MINIMAL)
+    with contextlib.ExitStack() as stack:
+        engine, server, el = CS.engine_rig(C, t, stack)
+        p = el.get_payload(engine.genesis_hash, 12, b"\x03" * 32)
+        assert el.notify_new_payload(p) is C.execution_layer.PayloadVerificationStatus.VERIFIED
+        assert [h for h, _, _ in el.notified] == [bytes(p.block_hash)]
+        assert CS.notified_since(C, el, 0, C.execution_layer.PayloadVerificationStatus.VERIFIED,
+                                 "t")[0] >= 0
+        engine.force_syncing = 1
+        el.notify_new_payload(p)
+        with pytest.raises(CS.Fail, match="want verified"):
+            CS.notified_since(C, el, 1, C.execution_layer.PayloadVerificationStatus.VERIFIED,
+                              "t")
+        url = server.url
+    with pytest.raises(OSError):
+        urllib.request.urlopen(url, data=b"{}", timeout=1.0)
+

@@ -6,8 +6,8 @@ gpu/ modules and backends/torch_cuda.py, and so has every one of the
 consensus modules the port copies (ssz/, types/, utils/, state_transition/ but
 per_epoch_mesh,
 store/, fork_choice/, chain/, pool/, processor/, speculate/, resilience/,
-harness/ and ef_tests.py; eth1/deposit_tree.py, network/snappy.py;
-execution_layer/execution_layer.py in part); every
+harness/ and ef_tests.py; eth1/, execution_layer/, network/snappy.py,
+utils/jsonrpc.py and validator_client/beacon_node.py); every
 name a package `__init__.py` of those exports is exported by the port's,
 or stands on the list below with the ROADMAP item that brings it, and
 ROADMAP.md names it. The JAX files are parsed, not imported: nothing
@@ -68,27 +68,19 @@ CONSUMERS = {
         "eth1/deposit_tree.py", "state_transition/genesis.py", "network/snappy.py",
         "ef_tests.py", "harness/chain.py", "harness/beacon_chain_harness.py",
         "store/fsck.py", "store/native_kv.py", "resilience/faults.py",
-        "resilience/crash.py", "resilience/primitives.py",
+        "resilience/crash.py", "resilience/primitives.py", "utils/jsonrpc.py",
+        "eth1/service.py", "eth1/jsonrpc.py", "execution_layer/keccak.py",
+        "execution_layer/rlp.py", "execution_layer/block_hash.py",
+        "execution_layer/engine_api.py", "execution_layer/auth.py",
+        "execution_layer/execution_layer.py", "execution_layer/mock_engine.py",
+        "execution_layer/http_engine.py", "execution_layer/builder.py",
+        "validator_client/beacon_node.py",
     )
-}
-
-# copied modules of which the port has only some names so far: the names
-# it has, and the ROADMAP item that brings the rest
-PARTIAL = {
-    "execution_layer/execution_layer.py": (
-        ("PayloadVerificationStatus", "PayloadInvalid"),
-        "execution_layer/ (ROADMAP Queue 1 item 14.8)"),
 }
 
 # names a JAX package __init__ exports that the port's does not yet, and
 # the ROADMAP item that brings each
-_EL = "execution_layer/ (ROADMAP Queue 1 item 14.8)"
 WAITING = {
-    "eth1/__init__.py": dict.fromkeys((
-        "Eth1RpcServer", "JsonRpcEth1Provider", "decode_deposit_log_data",
-        "encode_deposit_log_data", "Eth1Block", "Eth1ProviderError", "Eth1Service",
-        "FallbackEth1Provider", "MockEth1Provider", "NoEth1ProviderAvailable"),
-        "eth1/{jsonrpc,service}.py (ROADMAP Queue 1 item 14.8, step 5)"),
     "network/__init__.py": dict.fromkeys((
         "GossipMessage", "MessageBus", "topic_name", "BLOCKS_BY_RANGE", "BLOCKS_BY_ROOT",
         "STATUS_PROTOCOL", "NetworkNode", "Simulator", "SyncManager", "Bootnode",
@@ -97,21 +89,20 @@ WAITING = {
         "PLANS", "InvariantViolation", "Phase", "ScenarioPlan", "SLO",
         "assert_bit_identical_replay", "run_scenario"),
         "harness/scenario.py (ROADMAP Queue 1 item 14.8, step 5)"),
-    "execution_layer/__init__.py": dict.fromkeys((
-        "JwtError", "JwtKey", "generate_token", "validate_token", "BuilderError",
-        "BuilderHttpClient", "BuilderHttpServer", "MockBuilder", "NoBidAvailable",
-        "make_validator_registration", "unblind_signed_block", "verify_bid",
-        "calculate_execution_block_hash", "calculate_transactions_root",
-        "verify_payload_block_hash", "EngineApiError", "ExecutionEngine",
-        "ForkchoiceState", "ForkchoiceUpdatedResponse", "PayloadAttributes",
-        "PayloadStatusV1", "PayloadStatusV1Status", "ExecutionLayer",
-        "EngineRpcServer", "HttpJsonRpcEngine", "MockExecutionEngine"), _EL),
+    "validator_client/__init__.py": dict.fromkeys((
+        "ByzPlan", "ByzRoster", "ByzantineValidatorStore", "PlaceholderKeystore",
+        "KeymanagerApi", "KeymanagerServer", "BeaconNodeFallback", "DutiesService",
+        "NoHealthyBeaconNode", "ValidatorClient", "Web3SignerError", "Web3SignerMethod",
+        "Web3SignerServer", "NotSafe", "SlashingDatabase", "DoppelgangerHold",
+        "LocalKeystore", "ValidatorStore"),
+        "validator_client/ (ROADMAP Queue 1 item 14.8, step 5)"),
 }
 INITS = ("ssz/__init__.py", "types/__init__.py", "state_transition/__init__.py",
          "chain/__init__.py", "pool/__init__.py", "processor/__init__.py",
          "fork_choice/__init__.py", "store/__init__.py",
          "execution_layer/__init__.py", "speculate/__init__.py", "eth1/__init__.py",
-         "network/__init__.py", "harness/__init__.py", "resilience/__init__.py")
+         "network/__init__.py", "harness/__init__.py", "resilience/__init__.py",
+         "validator_client/__init__.py")
 
 
 def _public_names(path: Path) -> set:
@@ -148,21 +139,6 @@ def test_every_public_name_of_a_copied_module_has_a_port_counterpart(jax_file):
     port = importlib.import_module(CONSUMERS[jax_file])
     assert not sorted(n for n in jnames if not hasattr(port, n)), jax_file
     assert jnames
-
-
-@pytest.mark.parametrize("jax_file", sorted(PARTIAL))
-def test_a_partly_copied_module_has_its_names_and_the_rest_wait(jax_file):
-    """The names the port has are the JAX module's; the rest stand in
-    ROADMAP.md with their item."""
-    jnames = _public_names(ROOT / "lighthouse_tpu" / jax_file)
-    port = importlib.import_module(
-        "lighthouse_tpu_torch." + jax_file[:-3].replace("/", "."))
-    names, _ = PARTIAL[jax_file]
-    assert set(names) < jnames
-    assert all(hasattr(port, n) for n in names)
-    assert _public_names(ROOT / "lighthouse_tpu_torch" / jax_file) == set(names)
-    roadmap = (ROOT / "ROADMAP.md").read_text()
-    assert all(f"`{n}`" in roadmap for n in jnames - set(names))
 
 
 def _exported(path: Path) -> set:
