@@ -180,8 +180,8 @@ Phases (each one fails the run with a nonzero exit):
              proof, contribution-and-proof, the contribution's 128-key
              aggregate); both batches replayed; a sync-lane submit of the
              messages timed on an idle card and behind a ~1 s spin; the
-             messages with 1 planted forgery and the contributions with 1
-             and 3: exactly those rejected, within the bisection bound;
+             messages and the contributions with 1 planted forgery each:
+             exactly those rejected, within the bisection bound;
              the SyncContributionPool's
              sync aggregate in the next block, which the chain imports; a
              LightClientStore bootstrapped at the genesis block follows
@@ -210,13 +210,13 @@ Phases (each one fails the run with a nonzero exit):
   genesis    genesis from eth1 deposits on the card (MINIMAL, its 64
              min_genesis_active_validator_count): 64 interop deposits
              signed on the host pool, in a DepositDataTree with their
-             branches; initialize_beacon_state_from_eth1 verifies each new
-             key's proof of possession as one one-set call; the state
-             valid, its root the `fake` backend's; again with a forged
-             65th deposit in the list: that key absent, every other
-             validator and balance as before; try_genesis_from_eth1 over a
-             stub service whose cached blocks cross min_genesis_time
-             returns that state at the first qualifying block; an EF tree
+             branches; try_genesis_from_eth1 over a stub service whose
+             cached blocks cross min_genesis_time returns the state at the
+             first qualifying block, initialize_beacon_state_from_eth1
+             verifying each new key's proof of possession as one one-set
+             call; the state valid, its root the `fake` backend's; again
+             with a forged 65th deposit in the list: that key absent,
+             every other validator and balance as before; an EF tree
              in the official layout (every kind of the official BLS suite
              for verify, fast_aggregate_verify, aggregate_verify and
              batch_verify, signed by the host oracle, and genesis
@@ -245,10 +245,11 @@ Phases (each one fails the run with a nonzero exit):
              EngineRpcServer on a free localhost port, reached by the
              ExecutionLayer over HttpJsonRpcEngine with JWT (no retry
              policy: an engine that cannot be reached fails the import).
-             (a) MAINNET over the registry: its genesis root the same
-             under ChainSpec.interop(altair 0, bellatrix 1) with the
-             mock's terminal block as the terminal block hash; a
-             BeaconChain on it, its table on the card, imports (through
+             (a) MAINNET over the registry's genesis, under
+             ChainSpec.interop(altair 0, bellatrix 1) with the mock's
+             terminal block as the terminal block hash (which leave the
+             genesis root as it is); a BeaconChain on it, its table on
+             the card, imports (through
              chain.process_block, one call of 131 sets each) the
              merge-transition block at 32 (process_epoch over 16,384
              validators and the bellatrix upgrade on the way; payload
@@ -264,9 +265,10 @@ Phases (each one fails the run with a nonzero exit):
              round trip, the host ms to build the payload and to sign.
              (b) MINIMAL, BeaconChainHarness(64, sign=True) under
              ChainSpec.interop(altair 1, bellatrix 2) over the same rig:
-             the fork crossing (3 epochs, a call a block, every bellatrix
-             payload in the engine's log); two children of the head
-             imported while the engine reports SYNCING (OPTIMISTIC), a
+             the fork crossing (2 epochs and a block, a call a block,
+             every bellatrix payload in the engine's log); two children
+             of the head imported while the engine reports SYNCING
+             (OPTIMISTIC), a
              third beside them, the first's payload marked invalid and
              the head reorged onto the third; a MockBuilder behind a
              BuilderHttpServer with 64 registrations over HTTP,
@@ -281,6 +283,42 @@ Phases (each one fails the run with a nonzero exit):
              of the card's table equal to its host-packed limbs, the one
              signed over a wrong root skipped. Every server is stopped
              when the phase ends
+  network    the gossip network on the card, every data-path signature
+             on torch_cuda. (a) MAINNET over the registry's genesis and
+             the in-process MessageBus: NetworkNodes a and b, each a
+             BeaconChain with its table on the card, b with a slasher;
+             a publishes the block at 31 (its own import, one call) and b
+             imports it by gossip through its BeaconProcessor and
+             process_gossip_block (calls of 1 and 130 sets); 64
+             unaggregated attestations on their subnets verified by b as
+             one batch (their verdict the cpu oracle's, all in b's naive
+             pool); a forged one rejected and b's score of a down by
+             GOSSIP_PENALTY; a double vote (the honest ValidatorStore
+             refuses the second vote with NotSafe, a
+             ByzantineValidatorStore with the same key signs it) carried
+             as an aggregate, found by b's slasher, its AttesterSlashing
+             checked by a in one call of 2 sets and pooled; a double
+             proposal counted by BLOCK_EQUIVOCATIONS on b, its
+             ProposerSlashing checked by a (2 sets); node c from genesis
+             range-syncs block 31 from b, leaves, b imports the 4-block
+             segment 32-35 by gossip, and c, back, range-syncs it through
+             SyncManager in ONE call (~524 sets); a relays the segment
+             (the chain phase's blocks 32-35 when it ran) without
+             importing it; the heads of a, b, c the NO_VERIFICATION
+             twin's at their blocks (the registry's twin, which the
+             chain phase keeps). (b) MINIMAL over WireBus on
+             127.0.0.1: a Bootnode and two nodes on secure channels
+             with authenticated handshakes; the late joiner w1
+             range-syncs w0's chain (the finality phase's blocks when it
+             ran, else WIRE_BLOCKS) over the sockets in one call, then
+             imports the last block from a gossip frame (ssz_snappy);
+             an unreachable peer fails the phase. Node records, handshake
+             transcripts and bootnode registrations are checked on the
+             cpu oracle (control plane, as in the JAX package). Printed:
+             each call's sets, keys, pairs, first-call s and replayed ms,
+             the host ms of routing, encoding and decoding, and the
+             control plane's verifies and ms. Every server and socket is
+             closed when the phase ends
 
 The entry points run each stage as a CUDA graph: in every path the first
 verify of a batch captures its stages and the verifies after it replay
@@ -319,8 +357,10 @@ ALL_PHASES = (
     "build", "kernels", "parity", "gossip", "aggregate", "warm", "table",
     "aggverify", "graphs", "pipeline", "monolith", "windowed", "correct",
     "adversary", "block", "attestations", "chain", "sync", "pool", "genesis",
-    "finality", "merge",
+    "finality", "merge", "network",
 )
+# the phases that run over the MAINNET registry (built when one is asked for)
+REGISTRY_PHASES = ("block", "attestations", "chain", "sync", "pool", "merge", "network")
 # run only as the windowed phase's child process
 CHILD_PHASES = ("windowed-child",)
 
@@ -1897,7 +1937,7 @@ FORGED_AGGREGATES = ((11,),)
 
 def consensus_modules():
     """The port's consensus modules that the block, attestations, chain,
-    sync, pool, genesis, finality and merge phases drive, as one
+    sync, pool, genesis, finality, merge and network phases drive, as one
     namespace."""
     import importlib
     from types import SimpleNamespace
@@ -1921,7 +1961,10 @@ def consensus_modules():
         snappy="network.snappy", harness="harness", native_kv="store.native_kv",
         fsck="store.fsck", execution_layer="execution_layer",
         builder="execution_layer.builder", eth1="eth1",
-        beacon_node="validator_client.beacon_node",
+        beacon_node="validator_client.beacon_node", network="network",
+        net_node="network.node", net_sync="network.sync", wire="network.wire",
+        secure="network.secure", discovery="network.discovery", slasher="slasher",
+        vc="validator_client",
     )
     return SimpleNamespace(**{
         k: importlib.import_module("lighthouse_tpu_torch." + v)
@@ -2861,16 +2904,17 @@ def phase_chain(torch, K, TP, B, C, reg, launches, card):
     return out
 
 
-def twin_check(C, reg, blocks, label) -> float:
-    """Import `blocks` (which the registry's chain has just imported) into
-    the twin chain with NO_VERIFICATION, and hold the head, its state root
-    and the checkpoints equal to the chain's. The twin is made on first
-    use over the registry's genesis and is kept for the later phases, so
-    it imports every block the chain imports, in order. Returns the
-    twin's seconds."""
+def twin_import(C, reg, blocks) -> float:
+    """Import `blocks` into the registry's twin chain with NO_VERIFICATION,
+    keeping its view (`chain_view`) after each in `reg.views` by block
+    root. The twin is made on first use over the registry's genesis and
+    is kept for the later phases, so it imports every block the phases
+    import, in order. Returns the twin's seconds."""
     preset, spec = reg.preset, reg.spec
     NOV = C.per_block.BlockSignatureStrategy.NO_VERIFICATION
     t0 = time.perf_counter()
+    if not hasattr(reg, "views"):
+        reg.views = {}
     reg.imported.extend(blocks)
     todo = blocks
     if reg.twin is None:
@@ -2880,10 +2924,20 @@ def twin_check(C, reg, blocks, label) -> float:
         todo = reg.imported
     for b in todo:
         reg.twin.slot_clock.set_slot(b.message.slot)
-        reg.twin.process_block(b, strategy=NOV)
+        root = reg.twin.process_block(b, strategy=NOV)
+        reg.views[root] = chain_view(C, reg.twin)
+    return time.perf_counter() - t0
+
+
+def twin_check(C, reg, blocks, label) -> float:
+    """Import `blocks` (which the registry's chain has just imported) into
+    the twin chain (`twin_import`), and hold the chain's head, its state
+    root and the checkpoints equal to the twin's. Returns the twin's
+    seconds."""
+    secs = twin_import(C, reg, blocks)
     need(chain_view(C, reg.chain) == chain_view(C, reg.twin),
          f"{label}: head or checkpoints differ from the NO_VERIFICATION twin's")
-    return time.perf_counter() - t0
+    return secs
 
 
 class Calls:
@@ -2966,12 +3020,12 @@ class Calls:
 # --- the sync phase: sync-committee messages and contributions, the light client
 
 
-# one forged message: the 3-forgery run (~20 s on the card) was cut to keep
-# the default run near ~800 s once the genesis and finality phases came;
-# the unaggregated attestations and the contributions keep their 3-forgery
-# runs
+# one forged message and one forged contribution: the 3-forgery runs (~20 s
+# each on the card) were cut to keep the default run under its limit once the
+# genesis, finality and network phases came; the unaggregated attestations
+# keep theirs
 SYNC_FORGED_MESSAGES = ((17,),)
-SYNC_FORGED_CONTRIBUTIONS = ((5,), (1, 7, 12))
+SYNC_FORGED_CONTRIBUTIONS = ((5,),)
 SYNC_AGGREGATORS = 4  # contributions a subnet (~16 aggregators a subnet on mainnet)
 SYNC_MONITORED = 64  # the validator monitor registers the first 64 positions' senders
 
@@ -3826,11 +3880,14 @@ def genesis_service(tree, datas, blocks):
 
 def phase_genesis(torch, K, TP, B, C, host, launches, card):
     """Genesis from eth1 deposits on the card (MINIMAL): 64 interop
-    deposits, each new key's proof of possession one one-set call, the
-    state valid and equal to the `fake` backend's; a forged 65th deposit
-    left out; try_genesis_from_eth1 over a stub service; an EF tree of
-    BLS and genesis cases through the port's walker. Every call against
-    the cpu oracle."""
+    deposits through try_genesis_from_eth1 over a stub service (which
+    initializes from them), each new key's proof of possession one
+    one-set call, the state valid and equal to the `fake` backend's; a
+    forged 65th deposit left out; an EF tree of BLS and genesis cases
+    through the port's walker. Every call against the cpu oracle. (The
+    honest deposits run once, through the service: a separate
+    initialize_beacon_state_from_eth1 run of the same 64 calls was cut to
+    keep the default run under its limit.)"""
     T, G, api = C.types, C.genesis, C.api
     preset, spec = T.MINIMAL, T.ChainSpec.minimal()
     need(spec.min_genesis_active_validator_count == GENESIS_DEPOSITS,
@@ -3855,10 +3912,13 @@ def phase_genesis(torch, K, TP, B, C, host, launches, card):
     one = [C.signature_sets.deposit_signature_set(honest[0], spec)]
     calls.step("genesis: deposit", lambda: api.verify_signature_sets(one), [1])
     calls.replay("genesis: deposit", one)
-    state, _ = calls.step("genesis: initialize from eth1", lambda: initialize(deposits),
+    service = genesis_service(tree, honest, genesis_eth1_blocks(
+        spec, ETH1_BLOCK_HASH, GENESIS_DEPOSITS))
+    state, _ = calls.step("genesis: try_genesis_from_eth1",
+                          lambda: G.try_genesis_from_eth1(service, preset, spec),
                           [1] * GENESIS_DEPOSITS)
-    need(calls.rows["genesis: initialize from eth1"]["verdicts"] == [True] * GENESIS_DEPOSITS,
-         "genesis: a deposit rejected")
+    need(state is not None and calls.rows["genesis: try_genesis_from_eth1"]["verdicts"]
+         == [True] * GENESIS_DEPOSITS, "genesis: no state, or a deposit rejected")
     need(len(state.validators) == GENESIS_DEPOSITS and
          G.is_valid_genesis_state(state, preset, spec), "genesis: state not valid")
     api.set_backend("fake")
@@ -3879,14 +3939,6 @@ def phase_genesis(torch, K, TP, B, C, host, launches, card):
          [v.as_ssz_bytes() for v in state.validators] and
          list(bad.balances) == list(state.balances),
          "genesis: the forged deposit changed the registry")
-
-    service = genesis_service(tree, honest, genesis_eth1_blocks(
-        spec, ETH1_BLOCK_HASH, GENESIS_DEPOSITS))
-    waited, _ = calls.step("genesis: try_genesis_from_eth1",
-                           lambda: G.try_genesis_from_eth1(service, preset, spec),
-                           [1] * GENESIS_DEPOSITS)
-    need(waited is not None and waited.tree_hash_root() == state.tree_hash_root(),
-         "genesis: try_genesis_from_eth1 did not return the first qualifying state")
 
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "ef",
                         str(os.getpid()))
@@ -3921,19 +3973,17 @@ def phase_genesis(torch, K, TP, B, C, host, launches, card):
             f"{row['replayed_ms']:.1f} ms; card: {card}")
         out[kind] = dict(sets=row["calls"][0], keys=row["keys"][0], pairs=row["pairs"][0],
                          first_call_s=row["seconds"], replayed_ms=row["replayed_ms"])
-    init = calls.rows["genesis: initialize from eth1"]
+    init = calls.rows["genesis: try_genesis_from_eth1"]
     out.update(
         deposits=GENESIS_DEPOSITS, build_s=build_s, genesis_s=init["seconds"],
         forged_s=calls.rows["genesis: forged deposit"]["seconds"],
-        try_genesis_s=calls.rows["genesis: try_genesis_from_eth1"]["seconds"],
         ef_cases=len(results), ef_calls=len(ef_calls["calls"]),
         ef_s=ef_calls["seconds"], oracle_wait_s=oracle_wait_s,
         seconds=time.perf_counter() - t_phase)
-    log(f"genesis: {GENESIS_DEPOSITS} deposits in {init['seconds']:.3f} s "
-        f"({GENESIS_DEPOSITS} one-set calls), the state valid and its root the fake "
-        f"backend's; the forged 65th deposit left out, the registry unchanged "
-        f"({out['forged_s']:.3f} s); try_genesis_from_eth1 returned it at the first "
-        f"qualifying block ({out['try_genesis_s']:.3f} s); {len(results)} EF cases ok "
+    log(f"genesis: try_genesis_from_eth1 over {GENESIS_DEPOSITS} deposits in "
+        f"{init['seconds']:.3f} s ({GENESIS_DEPOSITS} one-set calls), the state valid "
+        f"and its root the fake backend's; the forged 65th deposit left out, the "
+        f"registry unchanged ({out['forged_s']:.3f} s); {len(results)} EF cases ok "
         f"({len(ef_calls['calls'])} backend calls, {out['ef_s']:.3f} s); every verdict "
         f"equal to the cpu oracle's (waited {oracle_wait_s:.1f} s); phase wall "
         f"{out['seconds']:.1f} s; card: {card}")
@@ -3967,13 +4017,15 @@ def forged_harness_block(C, h, slot):
     return signed, parent_root
 
 
-def phase_finality(torch, K, TP, B, C, host, launches, card):
+def phase_finality(torch, K, TP, B, C, host, launches, card, shared=None):
     """The port's BeaconChainHarness (MINIMAL, 64 validators, signing
     with the host oracle) on the card over a NativeStore: extend_chain
     until the chain finalizes, every block imported with VERIFY_BULK on
     torch_cuda; the head and checkpoints against a NO_VERIFICATION twin;
     a forged block rejected; fsck clean; the store reopened and the chain
-    resumed from it at the same head and finalized checkpoint."""
+    resumed from it at the same head and finalized checkpoint. Leaves the
+    genesis and the blocks in `shared["finality"]` for the network
+    phase's wire part."""
     T, M = C.types, C.metrics
     preset, spec = T.MINIMAL, T.ChainSpec.minimal()
     spe = preset.slots_per_epoch
@@ -4033,6 +4085,8 @@ def phase_finality(torch, K, TP, B, C, host, launches, card):
         C.bsv.BlockSignatureVerifier.verify = verify
     spans = span_ms(C, *FINALITY_SPANS)
     n = len(blocks)
+    if shared is not None:
+        shared["finality"] = (genesis, list(blocks))
     row = calls.rows["finality: extend_chain"]
     need(len(ext_calls) == n and all(row["verdicts"]),
          f"finality: {len(ext_calls)} backend calls for {n} blocks, verdicts "
@@ -4124,6 +4178,10 @@ MERGE_BLOCKS = 3  # the merge-transition block at BLOCK_SLOT + 1 (32) and two mo
 MERGE_FORGED = 7  # the forged block's attestation signed over a wrong root
 MERGE_SPANS = ("block_transition", "state_root", "store", "fork_choice")
 MERGE_VALIDATORS = 64  # the MINIMAL part's registry (ChainSpec.interop's genesis count)
+# the MINIMAL part's fork crossing: phase0, altair at epoch 1, bellatrix at
+# epoch 2 and its first two payload blocks (a third epoch was cut to keep the
+# default run under its limit)
+MERGE_CROSSING_SLOTS = 2 * 8 + 1
 MERGE_JWT_SECRET = bytes(range(32))  # the engine rig's HS256 key
 RIG_TIMEOUT_S = 5.0  # every rig client's socket timeout
 # the error the builder path gives a bid whose signature does not verify
@@ -4193,13 +4251,12 @@ def merge_mainnet(torch, B, C, reg, calls, card):
     out = {}
     with contextlib.ExitStack() as stack:
         engine, server, el = engine_rig(C, t, stack)
+        # the registry's genesis serves the merge spec: neither the bellatrix
+        # epoch nor the terminal block hash enters the interop genesis
+        # (tests/test_torch_chip_smoke.py holds the two roots equal; the
+        # MAINNET genesis computed again here cost ~15-17 s of host work and
+        # was cut to keep the default run under its limit)
         spec = merge_spec(C, engine)
-        t0 = time.perf_counter()
-        genesis, _ = registry_state(C, preset, spec, BLOCK_VALIDATORS, BLOCK_DISTINCT_KEYS,
-                                    host)
-        need(C.ssz.cached_root(genesis) == C.ssz.cached_root(reg.genesis),
-             "merge: the registry's genesis differs under the merge spec")
-        out["genesis_check_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         chain = C.beacon_chain.BeaconChain(
             C.hot_cold.HotColdDB(C.kv.MemoryStore(), preset, spec), reg.genesis,
@@ -4210,9 +4267,9 @@ def merge_mainnet(torch, B, C, reg, calls, card):
              "merge: the chain's pubkey table is not on the card or the backend "
              f"is {C.api.get_backend_name()}")
         out["chain_init_s"] = time.perf_counter() - t0
-        log(f"merge: {preset.name}, bellatrix at epoch 1: the registry's genesis root the "
-            f"same under the merge spec ({out['genesis_check_s']:.1f} s), a BeaconChain "
-            f"on it with its table on the card ({out['chain_init_s']:.1f} s), the engine "
+        log(f"merge: {preset.name}, bellatrix at epoch 1: a BeaconChain on the "
+            f"registry's genesis with its table on the card ({out['chain_init_s']:.1f} "
+            f"s), the engine "
             f"at {server.url} behind JWT; card: {card}")
 
         verify = C.bsv.BlockSignatureVerifier.verify
@@ -4397,14 +4454,15 @@ def merge_minimal(torch, B, C, host, calls, card):
 
         h.producer.produce_block = produce_recorded
         try:
-            _, crossing = calls.step("merge: fork crossing", lambda: h.extend_chain(3 * spe))
+            _, crossing = calls.step("merge: fork crossing",
+                                     lambda: h.extend_chain(MERGE_CROSSING_SLOTS))
         finally:
             h.producer.produce_block = produce
         row = calls.rows["merge: fork crossing"]
         payloads = [bytes(b.message.body.execution_payload.block_hash) for b in made
                     if hasattr(b.message.body, "execution_payload")]
         engine_ms = notified_since(C, el, 0, VERIFIED, "merge: fork crossing")
-        need(len(crossing) == len(made) == 3 * spe and all(row["verdicts"]) and
+        need(len(crossing) == len(made) == MERGE_CROSSING_SLOTS and all(row["verdicts"]) and
              h.chain.head_state.fork_name == "bellatrix" and
              len(payloads) == len(made) - 2 * spe + 1 and
              set(payloads) <= set(engine.new_payload_log),
@@ -4600,6 +4658,547 @@ def phase_merge(torch, K, TP, B, C, reg, launches, card):
     return out
 
 
+# --- the network phase: the gossip network, range sync, the slasher, the wire
+
+
+NETWORK_ATTESTATIONS = 64  # b's processor's gossip batch: the warmed bucket (64, 4, 4)
+NETWORK_PEERS = ("a", "b", "c")  # the MAINNET part's nodes
+WIRE_BLOCKS = 8  # the wire part's chain when the finality phase did not run
+WIRE_WAIT_S = 30.0  # the deadline for a gossip frame to cross the sockets and import
+WIRE_IDENTITY = 0x5EC0  # the wire nodes' identity secrets: this + 0, + 1
+NETWORK_SPANS = ("block_gossip_verify", "block_signature_verify")
+
+
+@contextlib.contextmanager
+def timed_attrs(sink, *targets, key=None):
+    """Each (object, attribute) replaced for the block by a wrapper that
+    appends (label, seconds) of every call to `sink` (threads too: a
+    list append is atomic); the label is "owner.attribute" (the module's,
+    class's or instance type's last name), or key(*args) of the call.
+    Restored after."""
+    import functools
+
+    saved = []
+
+    def wrap(label, fn):
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                sink.append((label if key is None else key(*args),
+                             time.perf_counter() - t))
+        return timed
+
+    for obj, name in targets:
+        owner = getattr(obj, "__name__", type(obj).__name__).rsplit(".", 1)[-1]
+        # an instance's method lives on its class: restored by deleting
+        # the wrapper, not by pinning the bound method on the instance
+        own = name in vars(obj)
+        saved.append((obj, name, getattr(obj, name) if own else None))
+        setattr(obj, name, wrap(f"{owner}.{name}", getattr(obj, name)))
+    try:
+        yield sink
+    finally:
+        for obj, name, fn in reversed(saved):
+            if fn is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, fn)
+
+
+def timed_ms(sink) -> dict:
+    """{label: [calls, ms]} of a `timed_attrs` sink."""
+    out = {}
+    for name, secs in sink:
+        row = out.setdefault(name, [0, 0.0])
+        row[0] += 1
+        row[1] += secs * 1e3
+    return out
+
+
+def network_chain(C, genesis, preset, spec):
+    """A node's BeaconChain from `genesis` over its own MemoryStore, its
+    pubkey table on the card (the port's default device)."""
+    return C.beacon_chain.BeaconChain(
+        C.hot_cold.HotColdDB(C.kv.MemoryStore(), preset, spec), genesis, preset, spec)
+
+
+def nodes_on_card(C, label, nodes):
+    """Every node's pubkey table on the card and the backend torch_cuda:
+    else the phase would not verify on the card."""
+    off = [n.peer_id for n in nodes
+           if n.chain.pubkey_cache.device_table().device.type != "cuda"]
+    need(not off, f"{label}: the pubkey tables of {off} are not on the card")
+    need(C.api.get_backend_name() == "torch_cuda",
+         f"{label}: the backend is {C.api.get_backend_name()}, not torch_cuda")
+
+
+def network_twin(C, genesis, preset, spec, blocks, nodes, label) -> float:
+    """A BeaconChain that imports `blocks` with NO_VERIFICATION; every
+    node's head, head state root and checkpoints must equal its. Returns
+    the twin's seconds."""
+    t0 = time.perf_counter()
+    twin = network_chain(C, genesis, preset, spec)
+    NOV = C.per_block.BlockSignatureStrategy.NO_VERIFICATION
+    for b in blocks:
+        twin.slot_clock.set_slot(b.message.slot)
+        twin.process_block(b, strategy=NOV)
+    view = chain_view(C, twin)
+    differ = [n.peer_id for n in nodes if chain_view(C, n.chain) != view]
+    need(not differ, f"{label}: the heads or checkpoints of {differ} differ from the "
+         "NO_VERIFICATION twin's")
+    return time.perf_counter() - t0
+
+
+def drain(node, label):
+    """Run the node's processor until its queues are empty; a handler
+    that raised fails the phase."""
+    errors = node.processor.handler_errors
+    node.processor.run_until_idle()
+    need(node.processor.handler_errors == errors,
+         f"{label}: {node.peer_id}'s processor handler raised: "
+         f"{node.processor.last_error}")
+
+
+def replay_step(calls, label, step_calls):
+    """Each call of the step `label` once more through `Calls.replay` (its
+    bucket's graphs captured by the step), at the verdict the step had:
+    the replayed ms of each, kept in the step's row."""
+    ms = [calls.replay(label, c["sets"], bool(c["out"])) for c in step_calls]
+    calls.rows[label]["replayed_ms"] = ms
+    return ms
+
+
+def double_vote(C, state, preset, spec, secret_of, committee, honest, host):
+    """The double vote of `committee`'s first member v: its honest vote
+    `honest` (signed by an honest ValidatorStore, which then refuses the
+    conflicting vote with NotSafe), and a vote for the genesis block at
+    the same slot and target signed by a ByzantineValidatorStore holding
+    the same key with a slashing database of its own (the same key run
+    in two clients); the byzantine store's refusal of the honest vote
+    overridden and audited. The conflicting vote travels as an aggregate
+    of v's bit alone, by an aggregator of the committee whose key the
+    byzantine store also holds. Returns (SignedAggregateAndProof, v, the
+    NotSafe text, the byzantine store)."""
+    T, VC = C.types, C.vc
+    t = T.types_for(preset)
+    v = committee[0]
+    slot = int(honest.data.slot)
+    sel_root = T.SigningData(
+        object_root=C.ssz.uint64.hash_tree_root(slot),
+        domain=T.get_domain(state, T.DOMAIN_SELECTION_PROOF, slot // preset.slots_per_epoch,
+                            preset)).tree_hash_root()
+    found = None
+    others = [m for m in committee if secret_of(m) != secret_of(v)]
+    for c0 in range(0, len(others), SELECTION_CHUNK):
+        chunk = others[c0:c0 + SELECTION_CHUNK]
+        proofs = host.sign([([secret_of(m)], sel_root) for m in chunk])
+        found = next(((m, p) for m, p in zip(chunk, proofs)
+                      if C.att.is_aggregator(len(committee), p, spec)), None)
+        if found:
+            break
+    need(found is not None, "network: no aggregator in the double vote's committee")
+    x, proof = found
+    key_v = VC.LocalKeystore(C.api.SecretKey(secret_of(v)))
+    key_x = VC.LocalKeystore(C.api.SecretKey(secret_of(x)))
+    pk_v, pk_x = key_v.pubkey.to_bytes(), key_x.pubkey.to_bytes()
+    honest_store = VC.ValidatorStore(preset, spec)
+    honest_store.add_validator(key_v, validator_index=v)
+    byz = VC.ByzantineValidatorStore(preset, spec)
+    byz.add_validator(key_v, validator_index=v)
+    byz.add_validator(key_x, validator_index=x)
+    need(honest_store.sign_attestation(pk_v, honest.data, state).to_bytes()
+         == bytes(honest.signature), "network: the honest store's vote differs")
+    data = T.AttestationData(
+        slot=honest.data.slot, index=honest.data.index,
+        beacon_block_root=C.helpers.get_block_root_at_slot(state, 0, preset),
+        source=honest.data.source, target=honest.data.target)
+    signature = byz.sign_attestation(pk_v, data, state).to_bytes()
+    refused = None
+    try:
+        honest_store.sign_attestation(pk_v, data, state)
+    except VC.NotSafe as e:
+        refused = str(e)
+    need(refused is not None, "network: the honest store signed the double vote")
+    byz.sign_attestation(pk_v, honest.data, state)
+    need([k for k, _, _ in byz.overrides] == ["attestation"],
+         f"network: the byzantine store's overrides {byz.overrides}")
+    need(byz.sign_selection_proof(pk_x, slot, state).to_bytes() == proof,
+         "network: the byzantine store's selection proof differs")
+    msg = t.AggregateAndProof(
+        aggregator_index=x, selection_proof=proof,
+        aggregate=t.Attestation(aggregation_bits=honest.aggregation_bits, data=data,
+                                signature=signature))
+    signed = t.SignedAggregateAndProof(
+        message=msg, signature=byz.sign_aggregate_and_proof(pk_x, msg, state).to_bytes())
+    return signed, v, refused, byz
+
+
+def network_mainnet(C, reg, calls, card):
+    """Part (a): MAINNET over the registry's genesis and the in-process
+    MessageBus. Nodes a and b (their tables on the card); a publishes
+    the block at BLOCK_SLOT and b imports it by gossip; 64 attestations
+    in one batch on b; a forged one penalised; a double vote and a double
+    proposal found by b's slasher and checked by a; a segment relayed by
+    a, imported by b by gossip and range-synced by c in one call; every
+    head the registry twin's at that block."""
+    PS, N = C.per_slot, C.network
+    preset, spec, host = reg.preset, reg.spec, reg.host
+    out, routing = {}, []
+    t0 = time.perf_counter()
+    bus = N.MessageBus()
+    a, b = (N.NetworkNode(p, network_chain(C, reg.genesis, preset, spec), bus)
+            for p in NETWORK_PEERS[:2])
+    b.attach_slasher(C.slasher.Slasher.open(C.kv.MemoryStore(), preset, spec))
+    nodes_on_card(C, "network", (a, b))
+    out["nodes_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    b31, post31 = reg.block or produce_block(C, reg.state, preset, spec, reg.secret_of, host)
+    # the segment after block 31: the chain phase's blocks when it ran (the
+    # same blocks: produce_segment is deterministic), else made here
+    by_slot = {blk.message.slot: blk for blk in reg.imported}
+    slots = range(BLOCK_SLOT + 1, BLOCK_SLOT + 1 + CHAIN_SEGMENT)
+    if all(s in by_slot for s in slots):
+        segment = [by_slot[s] for s in slots]
+    else:
+        segment, _ = produce_segment(C, post31, preset, spec, reg.secret_of, host,
+                                     CHAIN_SEGMENT)
+    parents = [b31.message.tree_hash_root()] + [
+        blk.message.tree_hash_root() for blk in segment[:-1]]
+    need([bytes(blk.message.parent_root) for blk in segment] == parents,
+         "network: the segment does not extend block 31")
+    s32 = PS.process_slots(PS.clone_state(post31), BLOCK_SLOT + 1, preset, spec)
+    unagg = gossip_unaggregated(C, s32, preset, spec, reg.secret_of, BLOCK_SLOT,
+                                NETWORK_ATTESTATIONS + 1, host)
+    honest = unagg[:NETWORK_ATTESTATIONS]
+    forged, = forge_gossip(C, s32, preset, spec, reg.secret_of, unagg[-1:], (0,), host)
+    committee = C.context.ConsensusContext(preset, spec).committee_cache(
+        s32, 0).get_beacon_committee(BLOCK_SLOT, 0)
+    conflicting, voter, refused, byz = double_vote(
+        C, s32, preset, spec, reg.secret_of, committee, honest[0], host)
+    double, _ = produce_block(C, reg.state, preset, spec, reg.secret_of, host, attest=False)
+    out["build_s"] = time.perf_counter() - t0
+    log(f"network: nodes a, b over a MessageBus, their tables on the card, b's slasher "
+        f"attached ({out['nodes_s']:.1f} s); built block {BLOCK_SLOT}, the segment "
+        f"{segment[0].message.slot}-{segment[-1].message.slot}, "
+        f"{NETWORK_ATTESTATIONS} + 1 forged attestations, validator {voter}'s double vote "
+        f"(the honest store refused it: {refused!r}; the byzantine store overrode "
+        f"{len(byz.overrides)}) and a double proposal in {out['build_s']:.1f} s; card: {card}")
+
+    def at(slot, *nodes):
+        for n in nodes:
+            n.chain.slot_clock.set_slot(slot)
+
+    def n_sets(*blocks):
+        return sum(len(blk.message.body.attestations) + 3 for blk in blocks)
+
+    def step(label, fn, want):
+        C.tracing.default_tracer().reset()
+        result, step_calls = calls.step(f"network: {label}", fn, want)
+        out[label] = calls.rows[f"network: {label}"]
+        return result, step_calls
+
+    root31 = b31.message.tree_hash_root()
+    at(BLOCK_SLOT, a, b)
+    # a publish's seconds by gossip kind: delivery into the receivers'
+    # queues, and for the slashing kinds the receiver's check on the card
+    # too (op gossip is handled as it arrives)
+    slasher_batches = []
+    with timed_attrs(routing, (bus, "publish"),
+                     key=lambda source, topic, payload: topic.split("/")[3].rstrip(
+                         "_0123456789")), \
+            timed_attrs(slasher_batches, (b.slasher_service.slasher, "process_queued")):
+        step("a publishes the block", lambda: a.publish_block(b31), [n_sets(b31)])
+        _, gossip_calls = step("b imports the block by gossip",
+                               lambda: drain(b, "network"), [1, n_sets(b31) - 1])
+        need(a.chain.head_root == b.chain.head_root == root31,
+             "network: the block is not both nodes' head")
+        row = out["b imports the block by gossip"]
+        row["first_call_ms"] = list(span_ms(C, *NETWORK_SPANS).values())
+        log(f"network: the block by gossip: span ms (the call and its host work) "
+            f"{json.dumps(dict(zip(NETWORK_SPANS, map(round, row['first_call_ms']))))}; "
+            f"card: {card}")
+        replay_step(calls, "network: b imports the block by gossip", gossip_calls)
+
+        def attestations():
+            for att in honest:
+                a.publish_attestation(att)
+            drain(b, "network")
+
+        _, att_calls = step("b verifies the attestation batch", attestations,
+                            [NETWORK_ATTESTATIONS])
+        pooled = {bytes(x.data.tree_hash_root()): x.data for x in honest}
+        n_pooled = sum(sum((b.naive_pool.get(d) or {"bits": ()})["bits"])
+                       for d in pooled.values())
+        need(n_pooled == NETWORK_ATTESTATIONS,
+             f"network: {n_pooled} of {NETWORK_ATTESTATIONS} attestations in b's naive pool")
+        replay_step(calls, "network: b verifies the attestation batch", att_calls)
+
+        score0 = b.peer_scores.get("a", 0)
+
+        def forged_attestation():
+            a.publish_attestation(forged)
+            drain(b, "network")
+
+        step("b rejects a forged attestation", forged_attestation, [1])
+        penalty = b.peer_scores.get("a", 0) - score0
+        need(penalty == C.net_node.GOSSIP_PENALTY and
+             out["b rejects a forged attestation"]["verdicts"] == [False],
+             f"network: the forged attestation cost a {penalty}")
+
+        def conflicting_aggregate():
+            bus.publish(a.peer_id, a._topic_aggregate, conflicting)
+            drain(b, "network")
+
+        step("b verifies the conflicting aggregate", conflicting_aggregate, [3])
+        need(out["b verifies the conflicting aggregate"]["verdicts"] == [True],
+             "network: the conflicting aggregate was rejected")
+        _, found_calls = step("b's slasher finds the double vote, a checks it",
+                              b.on_slot, [2])
+        svc = b.slasher_service
+        need(svc.attester_slashings_found == 1 and len(a.op_pool._attester_slashings) == 1
+             and out["b's slasher finds the double vote, a checks it"]["verdicts"]
+             == [True], f"network: {svc.attester_slashings_found} attester slashings "
+             f"found, {len(a.op_pool._attester_slashings)} in a's pool")
+        found = a.op_pool._attester_slashings[0]
+        need(voter in set(found.attestation_1.attesting_indices)
+             & set(found.attestation_2.attesting_indices),
+             "network: the attester slashing does not name the double voter")
+        replay_step(calls, "network: b's slasher finds the double vote, a checks it",
+                    found_calls)
+
+        equivocations0 = C.metrics.BLOCK_EQUIVOCATIONS.value
+
+        def double_proposal():
+            bus.publish(a.peer_id, a._topic_block, double)
+            drain(b, "network")
+
+        step("b sees the double proposal", double_proposal, [1, 2])
+        need(C.metrics.BLOCK_EQUIVOCATIONS.value - equivocations0 == 1
+             and b.chain.head_root == root31,
+             "network: the double proposal was not counted once as an equivocation, "
+             "or it moved b's head")
+        _, found_calls = step("b's slasher finds the double proposal, a checks it",
+                              b.on_slot, [2])
+        need(svc.proposer_slashings_found == 1 and len(a.op_pool._proposer_slashings) == 1,
+             f"network: {svc.proposer_slashings_found} proposer slashings found, "
+             f"{len(a.op_pool._proposer_slashings)} in a's pool")
+        replay_step(calls, "network: b's slasher finds the double proposal, a checks it",
+                    found_calls)
+
+        c = N.NetworkNode(NETWORK_PEERS[2], network_chain(C, reg.genesis, preset, spec), bus)
+        nodes_on_card(C, "network", (c,))
+        got, _ = step("c range-syncs the block from b", lambda: c.sync_with(b.peer_id),
+                      [n_sets(b31)])
+        need(got == 1 and c.chain.head_root == root31,
+             f"network: c synced {got} blocks, its head elsewhere")
+        bus.disconnect(c.peer_id)
+
+        def gossip_segment():
+            # a relays the segment (its own import is shown once, at block 31)
+            for blk in segment:
+                at(blk.message.slot, b)
+                bus.publish(a.peer_id, a._topic_block, blk)
+                drain(b, "network")
+            return b.chain.head_root
+
+        want = [k for blk in segment for k in (1, n_sets(blk) - 1)]
+        head, _ = step("the segment by gossip", gossip_segment, want)
+        need(head == segment[-1].message.tree_hash_root(),
+             "network: b does not hold the segment's head")
+        c = N.NetworkNode(c.peer_id, c.chain, bus)  # c rejoins the bus
+        got, sync_calls = step("c range-syncs the segment from b",
+                               lambda: c.sync_with(b.peer_id), [n_sets(*segment)])
+        need(got == CHAIN_SEGMENT and c.chain.head_root == head,
+             f"network: c synced {got} of {CHAIN_SEGMENT} blocks")
+        replay_step(calls, "network: c range-syncs the segment from b", sync_calls)
+    out["routing_ms"] = timed_ms(routing)
+    out["slasher_ms"] = [round(secs * 1e3, 1) for _, secs in slasher_batches]
+    # every node's view equals the registry twin's at its head: the twin
+    # imported these blocks in the chain phase, else it imports them now
+    out["twin_s"] = twin_import(C, reg, [blk for blk in [b31] + segment
+                                         if blk.message.tree_hash_root()
+                                         not in getattr(reg, "views", {})])
+    differ = [n.peer_id for n in (a, b, c)
+              if chain_view(C, n.chain) != reg.views.get(n.chain.head_root)]
+    need(not differ and a.chain.head_root == root31 and b.chain.head_root == head,
+         f"network: the heads or checkpoints of {differ} differ from the NO_VERIFICATION "
+         "twin's")
+    log(f"network: MAINNET: the head of a at slot {BLOCK_SLOT}, of b and c at slot "
+        f"{segment[-1].message.slot}, each equal to the twin's there "
+        f"({out['twin_s']:.1f} s); b's score of a {b.peer_scores.get('a')}; "
+        f"publishes by kind [n, ms] "
+        f"{json.dumps({k: [n, round(ms, 1)] for k, (n, ms) in out['routing_ms'].items()})}"
+        f"; b's slasher batches {out['slasher_ms']} ms; card: {card}")
+    return out
+
+
+def _enr_record(scalar, host, tcp_port):
+    """Worker: the bytes of a node record signed by secret `scalar`, made
+    in another process than the one that checks it (as a peer's record
+    arrives)."""
+    from lighthouse_tpu_torch.crypto.bls import api
+    from lighthouse_tpu_torch.network import discovery
+
+    return discovery.make_enr(api.SecretKey(scalar), host, 0, tcp_port).to_bytes()
+
+
+def wire_chain(C, shared):
+    """The MINIMAL chain the wire part carries: the finality phase's
+    genesis and blocks when it ran in this process, else WIRE_BLOCKS
+    blocks the port's StateHarness (64 validators, signing) makes. At
+    most SyncManager's batch of slots, so one range request holds them."""
+    T = C.types
+    spec = T.ChainSpec.minimal()
+    if "finality" in shared:
+        genesis, blocks = shared["finality"]
+    else:
+        h = C.harness.StateHarness(FINALITY_VALIDATORS, T.MINIMAL, spec, sign=True)
+        genesis = C.per_slot.clone_state(h.state)
+        h.extend_chain(WIRE_BLOCKS,
+                       strategy=C.per_block.BlockSignatureStrategy.NO_VERIFICATION)
+        blocks = h.blocks
+    return genesis, spec, [b for b in blocks if b.message.slot <= C.net_sync.BATCH_SIZE]
+
+
+def network_wire(B, C, host, shared, calls, card):
+    """Part (b): MINIMAL over WireBus on 127.0.0.1: a Bootnode and two
+    nodes on secure, authenticated channels. w0 holds the chain; w1
+    joins late and range-syncs all but the last block over the wire in
+    one call, then imports the last as a gossip frame from w0 (ssz_snappy
+    over the sockets); both heads the twin's. The control plane (node
+    records, the handshake transcripts, the bootnode's registration
+    proofs) runs on the cpu oracle; an unreachable peer fails the part."""
+    import functools
+    import random
+
+    T, N, W, S, D = C.types, C.network, C.wire, C.secure, C.discovery
+    preset = T.MINIMAL
+    out, codec, plane = {}, [], []
+    t_part = time.perf_counter()
+    genesis, spec, blocks = wire_chain(C, shared)
+    need(len(blocks) >= 2, f"network: wire: {len(blocks)} blocks")
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(timed_attrs(
+            plane, (D.Enr, "verify"), (S, "_verify_transcript"),
+            (W, "_verify_register_proof"), (S, "_sign_transcript"),
+            (W, "_sign_register_proof")))
+        # the control plane makes no backend call: its checks are pinned to
+        # the cpu oracle (the steps below hold their handshakes' calls too)
+        control_stack = stack.enter_context(contextlib.ExitStack())
+        control = control_stack.enter_context(backend_calls(B, C.metrics))
+        records = host.map(functools.partial(_enr_record, host="127.0.0.1", tcp_port=9000),
+                           [WIRE_IDENTITY, WIRE_IDENTITY + 1])
+        verdicts = [D.Enr.from_bytes(r).verify() for r in records]
+        tampered = bytearray(records[0])
+        tampered[8 + 48 + 4] ^= 1  # the udp port, under the signature
+        verdicts.append(D.Enr.from_bytes(bytes(tampered)).verify())
+        need(verdicts == [True, True, False], f"network: wire: ENR verdicts {verdicts}")
+
+        boot = W.Bootnode().start()
+        stack.callback(boot.stop)
+        nodes = []
+        for i in range(2):
+            bus = W.WireBus(preset, secure=True, authenticate=True,
+                            identity_sk=C.api.SecretKey(WIRE_IDENTITY + i),
+                            rng=random.Random(i))
+            node = N.NetworkNode(f"w{i}", network_chain(C, C.per_slot.clone_state(genesis),
+                                                        preset, spec), bus)
+            bus.listen(node.peer_id)
+            stack.callback(bus.stop)
+            nodes.append(node)
+        w0, w1 = nodes
+        nodes_on_card(C, "network: wire", nodes)
+        stack.enter_context(timed_attrs(
+            codec, (w0.bus.codec, "encode_gossip"), (w0.bus.codec, "encode_response"),
+            (w1.bus.codec, "decode_gossip"), (w1.bus.codec, "decode_response")))
+        NOV = C.per_block.BlockSignatureStrategy.NO_VERIFICATION
+        for blk in blocks[:-1]:  # w0 holds the chain (verified on the card where it was made)
+            w0.chain.slot_clock.set_slot(blk.message.slot)
+            w0.chain.process_block(blk, strategy=NOV)
+        t0 = time.perf_counter()
+        dialed = [w0.bus.bootstrap(boot), w1.bus.bootstrap(boot)]
+        listed = W.Bootnode.rpc(boot.host, boot.port, {"op": "list"})["peers"]
+        need(dialed == [0, 1] and sorted(p["peer_id"] for p in listed if p["identity_pk"])
+             == ["w0", "w1"], f"network: wire: dialed {dialed}, the bootnode lists "
+             f"{[(p['peer_id'], bool(p['identity_pk'])) for p in listed]}")
+        out["bootstrap_s"] = time.perf_counter() - t0
+        control_stack.close()
+        need(not control, f"network: wire: the control plane made {len(control)} "
+             "backend calls")
+
+        got, sync_calls = calls.step(
+            "network: wire: w1 range-syncs over the sockets",
+            lambda: w1.sync_with(w0.peer_id), [sum(
+                len(blk.message.body.attestations) + 2 for blk in blocks[:-1])])
+        need(got == len(blocks) - 1 and w1.chain.head_root == w0.chain.head_root,
+             f"network: wire: w1 synced {got} of {len(blocks) - 1} blocks")
+        out["range_sync"] = calls.rows["network: wire: w1 range-syncs over the sockets"]
+        replay_step(calls, "network: wire: w1 range-syncs over the sockets", sync_calls)
+
+        last = blocks[-1]
+        root = last.message.tree_hash_root()
+
+        def gossip():
+            for n in nodes:
+                n.chain.slot_clock.set_slot(last.message.slot)
+            w0.publish_block(last)
+            deadline = time.perf_counter() + WIRE_WAIT_S
+            while w1.chain.head_root != root and time.perf_counter() < deadline:
+                drain(w1, "network: wire")
+                time.sleep(0.005)
+            need(w1.chain.head_root == root,
+                 f"network: wire: the gossip block did not import on w1 within "
+                 f"{WIRE_WAIT_S} s")
+
+        k = len(last.message.body.attestations) + 2
+        _, gossip_calls = calls.step("network: wire: a gossip block over the sockets",
+                                     gossip, [k, 1, k - 1])
+        out["gossip"] = calls.rows["network: wire: a gossip block over the sockets"]
+        replay_step(calls, "network: wire: a gossip block over the sockets",
+                    gossip_calls[1:])
+        out["frames_sent"] = w0.bus.stats["gossip_frames_sent"]
+    out["codec_ms"] = timed_ms(codec)
+    out["control_plane_ms"] = timed_ms(plane)
+    out["twin_s"] = network_twin(C, genesis, preset, spec, blocks, (w0, w1),
+                                 "network: wire")
+    out["blocks"] = len(blocks)
+    out["seconds"] = time.perf_counter() - t_part
+    log(f"network: wire: {len(blocks)} MINIMAL blocks, bootstrap of w0 and w1 over "
+        f"secure authenticated channels {out['bootstrap_s']:.2f} s; the cpu-pinned "
+        f"control plane [n, ms] "
+        f"{json.dumps({k: [n, round(ms, 1)] for k, (n, ms) in out['control_plane_ms'].items()})}"
+        f"; ssz_snappy host [n, ms] "
+        f"{json.dumps({k: [n, round(ms, 2)] for k, (n, ms) in out['codec_ms'].items()})}; "
+        f"both heads the twin's ({out['twin_s']:.1f} s); every server and socket closed; "
+        f"part wall {out['seconds']:.1f} s; card: {card}")
+    return out
+
+
+def phase_network(torch, K, TP, B, C, reg, shared, launches, card):
+    """The gossip network on the card: part (a) at MAINNET over the
+    in-process MessageBus, part (b) at MINIMAL over WireBus sockets;
+    every call's launches held to expected_launches and its verdict to
+    the cpu oracle's."""
+    t_phase = time.perf_counter()
+    C.tracing.configure(clock=_WallClock())
+    calls = Calls(torch, K, TP, B, C, reg.host, launches, card)
+    out = dict(mainnet=network_mainnet(C, reg, calls, card))
+    t_wire = time.perf_counter()
+    out["wire"] = network_wire(B, C, reg.host, shared, calls, card)
+    out["oracle_wait_s"] = calls.check_oracle("network")
+    out["seconds"] = time.perf_counter() - t_phase
+    out["mainnet"]["seconds"] = t_wire - t_phase
+    log(f"network: every verdict equal to the cpu oracle's (waited "
+        f"{out['oracle_wait_s']:.1f} s); phase wall {out['seconds']:.1f} s (MAINNET part "
+        f"{out['mainnet']['seconds']:.1f} s, wire part {out['wire']['seconds']:.1f} s); "
+        f"card: {card}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -4704,12 +5303,12 @@ def main(argv=None) -> int:
     if "adversary" in phases:
         api.set_backend("torch_cuda")
         paths["adversary"] = phase_adversary(torch, K, TP, B, api, launches, card)
-    registry_phases = ("block", "attestations", "chain", "sync", "pool", "merge")
-    if any(p in phases for p in registry_phases + ("genesis", "finality")):
+    if any(p in phases for p in REGISTRY_PHASES + ("genesis", "finality")):
         api.set_backend("torch_cuda")
         C = consensus_modules()
+        shared = {}  # what one phase leaves for a later one: the finality chain
         with host_pool() as pool:
-            if any(p in phases for p in registry_phases):
+            if any(p in phases for p in REGISTRY_PHASES):
                 reg = registry(torch, C, HostCrypto(pool), card)
                 paths["registry"] = reg.summary
             if "block" in phases:
@@ -4728,9 +5327,12 @@ def main(argv=None) -> int:
                                                  launches, card)
             if "finality" in phases:
                 paths["finality"] = phase_finality(torch, K, TP, B, C, HostCrypto(pool),
-                                                   launches, card)
+                                                   launches, card, shared)
             if "merge" in phases:
                 paths["merge"] = phase_merge(torch, K, TP, B, C, reg, launches, card)
+            if "network" in phases:
+                paths["network"] = phase_network(torch, K, TP, B, C, reg, shared,
+                                                 launches, card)
 
     if results:
         line = []
@@ -4755,7 +5357,13 @@ def main(argv=None) -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        rc = main()
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
-        sys.exit(1)
+        rc = 1
+    # every process and server of the run is stopped by now, so the
+    # interpreter's teardown, which only frees the phases' chain states and
+    # graph pools, is skipped: the run's wall counts against its limit
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)

@@ -329,6 +329,11 @@ BLOCKS_IMPORTED = REGISTRY.counter(
 BLOCKS_REJECTED = REGISTRY.counter(
     "beacon_blocks_rejected_total", "Blocks rejected on import"
 )
+BLOCK_EQUIVOCATIONS = REGISTRY.counter(
+    "beacon_block_equivocations_total",
+    "Gossip blocks IGNOREd as a second distinct proposal from the same "
+    "(slot, proposer) — handed to the slasher, never imported via gossip",
+)
 
 # -- the store: write-ahead journal (store/kv.py), fsck, the native log ------
 
@@ -427,6 +432,11 @@ _SLOT_DELAY_BUCKETS = (
     0.05, 0.1, 0.25, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0,
 )
 
+BLOCK_OBSERVED_DELAY = REGISTRY.histogram(
+    "beacon_block_observed_delay_seconds",
+    "Slot-start to gossip arrival of the block",
+    buckets=_SLOT_DELAY_BUCKETS,
+)
 BLOCK_VERIFIED_DELAY = REGISTRY.histogram(
     "beacon_block_verified_delay_seconds",
     "Slot-start to full signature verification of the block",

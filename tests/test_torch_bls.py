@@ -227,7 +227,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "execution_layer/engine_api.py", "execution_layer/auth.py",
                 "execution_layer/execution_layer.py", "execution_layer/mock_engine.py",
                 "execution_layer/http_engine.py", "execution_layer/builder.py",
-                "validator_client/beacon_node.py", "validator_client/__init__.py"):
+                "validator_client/beacon_node.py", "validator_client/__init__.py",
+                "network/message_bus.py", "network/peer_score.py",
+                "network/subnet_service.py", "network/sync.py", "network/node.py",
+                "network/simulator.py", "network/secure.py", "network/discovery.py",
+                "network/wire.py", "network/wire_fabric.py", "network/__init__.py",
+                "slasher/slasher.py", "slasher/service.py", "slasher/__init__.py",
+                "crypto/aes.py", "validator_client/slashing_protection.py",
+                "validator_client/validator_store.py", "validator_client/byzantine.py"):
         assert "lighthouse_tpu_torch/" + mod in walked, mod
     assert len(_port_files()) > 10
     assert not bad, bad

@@ -193,7 +193,7 @@ def test_pipeline_phase_runs_last_on_warmed_buckets():
     # after it only the phases that reuse none of its state
     assert CS.ALL_PHASES[at + 1:] == ("monolith", "windowed", "correct", "adversary",
                                       "block", "attestations", "chain", "sync", "pool",
-                                      "genesis", "finality", "merge")
+                                      "genesis", "finality", "merge", "network")
     warm = set(B.DEFAULT_WARM_BUCKETS)
     assert [b for b in CS.PIPELINE_BUCKETS if b not in warm] == [(1024, 4, 32)]
     assert (16, 4, 16) in warm and S.warm_capacity(64) == 64
@@ -410,8 +410,8 @@ def test_block_and_attestations_phases_run_last():
     """Last but for the chain phase, which imports the block phase's block,
     the sync and pool phases, which go on from its chain, the genesis
     and finality phases, which run over their own MINIMAL chains, and the
-    merge phase."""
-    assert CS.ALL_PHASES[-8:-6] == ("block", "attestations")
+    merge and network phases."""
+    assert CS.ALL_PHASES[-9:-7] == ("block", "attestations")
     assert "block " in CS.__doc__ and "attestations " in CS.__doc__
     assert CS.BLOCK_VALIDATORS // 32 // 128 == 4 and CS.BLOCK_DISTINCT_KEYS >= 1024
     assert (CS.GOSSIP_UNAGGREGATED, CS.GOSSIP_AGGREGATES) == (64, 32)
@@ -532,7 +532,7 @@ def test_gossip_through_the_processor_isolates_forgeries(minimal_chain):
 
 def test_chain_phase_runs_after_block_and_attestations():
     """It imports the block phase's block, over the registry they share."""
-    assert CS.ALL_PHASES[-8:-5] == ("block", "attestations", "chain")
+    assert CS.ALL_PHASES[-9:-6] == ("block", "attestations", "chain")
     assert "chain " in CS.__doc__
     assert CS.CHAIN_SEGMENT == 4 and 0 < CS.CHAIN_FORGED < CS.CHAIN_SEGMENT
 
@@ -751,12 +751,12 @@ def test_chain_verdicts_on_the_card(minimal_import, backend):
 def test_sync_and_pool_phases_run_last_on_the_chain():
     """They go on from the chain phase's chain: asked for without it, the
     script stops before it touches a card."""
-    assert CS.ALL_PHASES[-5:-3] == ("sync", "pool")
+    assert CS.ALL_PHASES[-6:-4] == ("sync", "pool")
     assert "sync " in CS.__doc__ and "pool " in CS.__doc__
     with pytest.raises(SystemExit, match="chain"):
         CS.main(["--phases", "build,sync"])
     assert [len(b) for b in CS.SYNC_FORGED_MESSAGES] == [1]
-    assert [len(b) for b in CS.SYNC_FORGED_CONTRIBUTIONS] == [1, 3]
+    assert [len(b) for b in CS.SYNC_FORGED_CONTRIBUTIONS] == [1]
     assert max(max(b) for b in CS.SYNC_FORGED_CONTRIBUTIONS) < 4 * CS.SYNC_AGGREGATORS
     assert (CS.POOL_BATCH, CS.POOL_AGGREGATES) == (64, 32)
     assert len(CS.SPECULATE_FAMILIES) == 10
@@ -922,7 +922,7 @@ def test_genesis_and_finality_phases_run_last():
     """After the pool phase and before merge, each over its own MINIMAL
     chain; every call kind they add runs the pairs expected_launches is
     held to."""
-    assert CS.ALL_PHASES[-3:-1] == ("genesis", "finality")
+    assert CS.ALL_PHASES[-4:-2] == ("genesis", "finality")
     assert "genesis " in CS.__doc__ and "finality " in CS.__doc__
     assert CS.GENESIS_DEPOSITS == 64 and 0 < CS.GENESIS_FORGED_AT < CS.GENESIS_DEPOSITS
     assert CS.EF_KINDS == ("verify", "fast_aggregate_verify", "aggregate_verify",
@@ -1069,7 +1069,8 @@ def test_finality_phase_harness_over_a_native_store(tmp_path):
 
 
 def test_merge_phase_runs_last_on_the_registry():
-    """Last; it goes on from the registry (built when merge is asked for),
+    """Last but for the network phase; it goes on from the registry (built
+    when merge is asked for),
     and its MAINNET chain takes the registry's genesis unchanged: the
     genesis root is the same with bellatrix at epoch 1 and the mock
     engine's terminal block hash in the spec."""
@@ -1077,7 +1078,7 @@ def test_merge_phase_runs_last_on_the_registry():
     from lighthouse_tpu_torch import types as T
     from lighthouse_tpu_torch.ssz import cached_root
 
-    assert CS.ALL_PHASES[-1] == "merge" and "merge " in CS.__doc__
+    assert CS.ALL_PHASES[-2] == "merge" and "merge " in CS.__doc__
     assert CS.MERGE_BLOCKS == 3 and CS.MERGE_VALIDATORS == 64
     C = CS.consensus_modules()
     engine = X.MockExecutionEngine(T.types_for(T.MINIMAL))
@@ -1117,3 +1118,136 @@ def test_engine_rig_times_every_notify_and_stops():
     with pytest.raises(OSError):
         urllib.request.urlopen(url, data=b"{}", timeout=1.0)
 
+
+
+# --- the network phase's host side, at MINIMAL ----------------------------------
+
+
+def test_network_phase_runs_last_on_the_registry():
+    """Last, over the registry the block, chain and merge phases share; its
+    wire part takes the finality phase's chain when that phase ran."""
+    assert CS.ALL_PHASES[-1] == "network" and "network " in CS.__doc__
+    assert "network" in CS.REGISTRY_PHASES and "merge" in CS.REGISTRY_PHASES
+    assert CS.ALL_PHASES.index("finality") < CS.ALL_PHASES.index("network")
+    assert CS.NETWORK_ATTESTATIONS == 64 and CS.CHAIN_SEGMENT == 4
+    assert CS.WIRE_BLOCKS >= 2
+
+
+@pytest.mark.parametrize("table, backend_name, fails", [
+    ("cuda", "torch_cuda", None),
+    ("cpu", "torch_cuda", "pubkey tables of \\['a'\\] are not on the card"),
+    ("cuda", "fake", "the backend is fake, not torch_cuda"),
+])
+def test_network_nodes_need_their_tables_on_the_card_and_torch_cuda(
+        minimal_import, backend, monkeypatch, table, backend_name, fails):
+    from types import SimpleNamespace
+
+    C, genesis, preset, spec = minimal_import[:4]
+    node = C.network.NetworkNode("a", _chain_on(C, genesis, preset, spec),
+                                 C.network.MessageBus())
+    if table == "cuda":
+        monkeypatch.setattr(node.chain.pubkey_cache, "device_table",
+                            lambda: SimpleNamespace(device=SimpleNamespace(type="cuda")))
+    backend(backend_name, device="cpu") if backend_name == "torch_cuda" else backend(
+        backend_name)
+    if fails is None:
+        CS.nodes_on_card(C, "network", [node])
+    else:
+        with pytest.raises(CS.Fail, match=fails):
+            CS.nodes_on_card(C, "network", [node])
+
+
+def test_network_calls_are_held_to_the_cpu_oracle(monkeypatch):
+    """A step's backend call whose verdict differs from the cpu oracle's
+    fails the phase at check_oracle."""
+    from types import SimpleNamespace
+
+    from lighthouse_tpu_torch.crypto.bls.backends import torch_cuda as B
+    from lighthouse_tpu_torch.crypto.bls.gpu import kernels as K
+
+    C = CS.consensus_modules()
+    monkeypatch.setattr(B, "dispatch_verify_signature_sets", lambda sets, *a, **k: True)
+
+    class Host:
+        def oracle(self, batches, seed):
+            return lambda: [False for _ in batches]
+
+    calls = CS.Calls(None, K, None, B, C, Host(), {}, "card")
+    sets = [SimpleNamespace(pubkeys=[1])]
+    _, step_calls = calls.step("network: x", lambda: B.dispatch_verify_signature_sets(sets),
+                               [1])
+    assert calls.rows["network: x"]["verdicts"] == [True]
+    with pytest.raises(CS.Fail, match="network: x: card True, cpu oracle False"):
+        calls.check_oracle("network")
+
+
+def test_network_heads_are_held_to_the_twin(minimal_import):
+    """Nodes whose chains imported the blocks pass; a node one block ahead
+    fails the phase."""
+    C, genesis, preset, spec, segment = minimal_import[:5]
+    bus = C.network.MessageBus()
+    NOV = C.per_block.BlockSignatureStrategy.NO_VERIFICATION
+    nodes = []
+    for name, blocks in (("a", segment[:2]), ("b", segment[:2]), ("c", segment[:3])):
+        chain = _chain_on(C, genesis, preset, spec)
+        for blk in blocks:
+            chain.slot_clock.set_slot(blk.message.slot)
+            chain.process_block(blk, strategy=NOV)
+        nodes.append(C.network.NetworkNode(name, chain, bus))
+    assert CS.network_twin(C, genesis, preset, spec, segment[:2], nodes[:2], "t") >= 0
+    with pytest.raises(CS.Fail, match="the heads or checkpoints of \\['c'\\] differ"):
+        CS.network_twin(C, genesis, preset, spec, segment[:2], nodes, "t")
+    # the registry twin keeps its view after each block: the MAINNET part's
+    # nodes are held to it at their heads
+    from types import SimpleNamespace
+
+    reg = SimpleNamespace(genesis=genesis, preset=preset, spec=spec, imported=[], twin=None)
+    CS.twin_import(C, reg, segment[:3])
+    assert [reg.views[n.chain.head_root] == CS.chain_view(C, n.chain) for n in nodes] == [
+        True, True, True]
+    assert reg.views[segment[1].message.tree_hash_root()] != CS.chain_view(C, nodes[2].chain)
+
+
+def test_network_double_vote_is_refused_by_the_honest_store(minimal_import):
+    """The double vote the phase gossips: the honest ValidatorStore signs
+    the first vote (the same bytes as the host's) and refuses the second
+    with NotSafe; the byzantine store signs it and audits its override;
+    the conflicting aggregate carries the voter's bit alone, a slashable
+    pair with the honest vote, by an aggregator of the committee."""
+    C, genesis, preset, spec, segment, posts = minimal_import[:6]
+    host = CS.HostCrypto()
+    state = C.per_slot.process_slots(C.per_slot.clone_state(posts[0]), 2, preset, spec)
+    secret_of = (lambda i: C.types.interop_secret_key(i % 16).scalar)
+    honest = CS.gossip_unaggregated(C, state, preset, spec, secret_of, 1, 1, host)[0]
+    committee = C.context.ConsensusContext(preset, spec).committee_cache(
+        state, 0).get_beacon_committee(1, 0)
+    signed, voter, refused, byz = CS.double_vote(C, state, preset, spec, secret_of,
+                                                 committee, honest, host)
+    assert voter == committee[0] and "double vote" in refused
+    assert [k for k, _, _ in byz.overrides] == ["attestation"]
+    agg = signed.message.aggregate
+    assert agg.aggregation_bits == honest.aggregation_bits
+    assert signed.message.aggregator_index in committee
+    assert C.per_block.is_slashable_attestation_data(honest.data, agg.data)
+    assert bytes(agg.data.beacon_block_root) == C.helpers.get_block_root_at_slot(
+        state, 0, preset)
+
+
+def test_timed_attrs_label_and_restore():
+    import types
+
+    sink = []
+    mod = types.ModuleType("pkg.mod")
+    mod.f = lambda x: x + 1
+
+    class Obj:
+        def g(self, x):
+            return x * 2
+
+    obj = Obj()
+    f0 = mod.f
+    with CS.timed_attrs(sink, (mod, "f"), (obj, "g")):
+        assert mod.f(1) == 2 and obj.g(3) == 6
+    assert mod.f is f0 and "g" not in vars(obj)
+    assert [label for label, _ in sink] == ["mod.f", "Obj.g"]
+    assert CS.timed_ms(sink + [("mod.f", 0.5)])["mod.f"][0] == 2

@@ -6,8 +6,9 @@ gpu/ modules and backends/torch_cuda.py, and so has every one of the
 consensus modules the port copies (ssz/, types/, utils/, state_transition/ but
 per_epoch_mesh,
 store/, fork_choice/, chain/, pool/, processor/, speculate/, resilience/,
-harness/ and ef_tests.py; eth1/, execution_layer/, network/snappy.py,
-utils/jsonrpc.py and validator_client/beacon_node.py); every
+harness/ and ef_tests.py; eth1/, execution_layer/, network/, slasher/,
+crypto/aes.py, utils/jsonrpc.py and validator_client/{beacon_node,
+slashing_protection,validator_store,byzantine}.py); every
 name a package `__init__.py` of those exports is exported by the port's,
 or stands on the list below with the ROADMAP item that brings it, and
 ROADMAP.md names it. The JAX files are parsed, not imported: nothing
@@ -74,27 +75,27 @@ CONSUMERS = {
         "execution_layer/engine_api.py", "execution_layer/auth.py",
         "execution_layer/execution_layer.py", "execution_layer/mock_engine.py",
         "execution_layer/http_engine.py", "execution_layer/builder.py",
-        "validator_client/beacon_node.py",
+        "validator_client/beacon_node.py", "network/message_bus.py",
+        "network/peer_score.py", "network/subnet_service.py", "network/sync.py",
+        "network/node.py", "network/simulator.py", "network/secure.py",
+        "network/discovery.py", "network/wire.py", "network/wire_fabric.py",
+        "slasher/slasher.py", "slasher/service.py", "crypto/aes.py",
+        "validator_client/slashing_protection.py",
+        "validator_client/validator_store.py", "validator_client/byzantine.py",
     )
 }
 
 # names a JAX package __init__ exports that the port's does not yet, and
 # the ROADMAP item that brings each
 WAITING = {
-    "network/__init__.py": dict.fromkeys((
-        "GossipMessage", "MessageBus", "topic_name", "BLOCKS_BY_RANGE", "BLOCKS_BY_ROOT",
-        "STATUS_PROTOCOL", "NetworkNode", "Simulator", "SyncManager", "Bootnode",
-        "WireBus", "WireCodec"), "network/ (ROADMAP Queue 1 item 14.8, step 5)"),
     "harness/__init__.py": dict.fromkeys((
         "PLANS", "InvariantViolation", "Phase", "ScenarioPlan", "SLO",
         "assert_bit_identical_replay", "run_scenario"),
         "harness/scenario.py (ROADMAP Queue 1 item 14.8, step 5)"),
     "validator_client/__init__.py": dict.fromkeys((
-        "ByzPlan", "ByzRoster", "ByzantineValidatorStore", "PlaceholderKeystore",
         "KeymanagerApi", "KeymanagerServer", "BeaconNodeFallback", "DutiesService",
         "NoHealthyBeaconNode", "ValidatorClient", "Web3SignerError", "Web3SignerMethod",
-        "Web3SignerServer", "NotSafe", "SlashingDatabase", "DoppelgangerHold",
-        "LocalKeystore", "ValidatorStore"),
+        "Web3SignerServer"),
         "validator_client/ (ROADMAP Queue 1 item 14.8, step 5)"),
 }
 INITS = ("ssz/__init__.py", "types/__init__.py", "state_transition/__init__.py",
@@ -102,7 +103,7 @@ INITS = ("ssz/__init__.py", "types/__init__.py", "state_transition/__init__.py",
          "fork_choice/__init__.py", "store/__init__.py",
          "execution_layer/__init__.py", "speculate/__init__.py", "eth1/__init__.py",
          "network/__init__.py", "harness/__init__.py", "resilience/__init__.py",
-         "validator_client/__init__.py")
+         "validator_client/__init__.py", "slasher/__init__.py")
 
 
 def _public_names(path: Path) -> set:
