@@ -319,6 +319,37 @@ Phases (each one fails the run with a nonzero exit):
              the host ms of routing, encoding and decoding, and the
              control plane's verifies and ms. Every server and socket is
              closed when the phase ends
+  http       the beacon API over HTTP and the validator client. (a)
+             MAINNET: a BeaconChain on the registry's genesis (its table
+             on the card) behind BeaconApiServer with a ServingTier; a
+             BeaconNodeHttpClient posts block 31 (ONE call of its 131
+             sets) while an SSE subscriber of block,head receives both
+             events for its root; the head state's 16,384 validators,
+             its committees, the head header and genesis read cold, then
+             from the response cache (X-Cache hit, one more
+             SERVING_CACHE_HITS) and revalidated (304); attester duties
+             of every validator and proposer duties; HTTP_SYNC_MESSAGES
+             sync-committee messages (one call each) and a forged one
+             refused; a read-only GET shed with 503 and Retry-After under
+             pressure forced through the admission's health source while
+             a duty POST passes; /lighthouse/health from process_metrics
+             and the SERVING_* families on /metrics. (b) interop keys in
+             EIP-2335 keystores (scrypt at SCRYPT_N_LIGHT, one pbkdf2)
+             imported over HTTP by a KeymanagerServer into a
+             ValidatorStore (a wrong password refused), one more key
+             behind a Web3SignerServer; a selection proof of each through
+             the store, all verified in ONE call, False with two roots
+             swapped. (c) a ValidatorClient of 16 distinct keys over
+             BeaconNodeFallback([a closed port, a live client]) of a
+             MINIMAL harness chain (altair) on the card, for an epoch:
+             every block proposed over HTTP and imported on the card
+             (one call a slot), no duty error, the graffiti in the head
+             block, the closed port passed over, two of its sync messages
+             posted over HTTP and verified; every head the
+             NO_VERIFICATION twin's. Printed: each call's sets, keys,
+             pairs, s and replayed ms; GET ms cold, cached and 304; the
+             SSE ms from import to subscriber; keystore and Web3Signer ms;
+             s a VC slot. Every server is stopped when the phase ends
 
 The entry points run each stage as a CUDA graph: in every path the first
 verify of a batch captures its stages and the verifies after it replay
@@ -357,10 +388,11 @@ ALL_PHASES = (
     "build", "kernels", "parity", "gossip", "aggregate", "warm", "table",
     "aggverify", "graphs", "pipeline", "monolith", "windowed", "correct",
     "adversary", "block", "attestations", "chain", "sync", "pool", "genesis",
-    "finality", "merge", "network",
+    "finality", "merge", "network", "http",
 )
 # the phases that run over the MAINNET registry (built when one is asked for)
-REGISTRY_PHASES = ("block", "attestations", "chain", "sync", "pool", "merge", "network")
+REGISTRY_PHASES = ("block", "attestations", "chain", "sync", "pool", "merge", "network",
+                   "http")
 # run only as the windowed phase's child process
 CHILD_PHASES = ("windowed-child",)
 
@@ -1964,7 +1996,8 @@ def consensus_modules():
         beacon_node="validator_client.beacon_node", network="network",
         net_node="network.node", net_sync="network.sync", wire="network.wire",
         secure="network.secure", discovery="network.discovery", slasher="slasher",
-        vc="validator_client",
+        vc="validator_client", http_api="http_api", serving="serving",
+        keystore="crypto.keystore",
     )
     return SimpleNamespace(**{
         k: importlib.import_module("lighthouse_tpu_torch." + v)
@@ -3047,21 +3080,24 @@ def sync_committee_members(C, state, preset):
     return out
 
 
-def sync_messages(C, state, preset, spec, secret_of, slot, root, host, forge=()):
+def sync_messages(C, state, preset, spec, secret_of, slot, root, host, forge=(),
+                  positions=None):
     """[(SyncCommitteeMessage, subnet)] of `slot` over block `root`: one a
-    position of the current sync committee, from `sync_committee_members`;
-    the positions in `forge` sign a wrong root."""
+    position of the current sync committee (or of each of `positions`),
+    from `sync_committee_members`; the positions in `forge` sign a wrong
+    root."""
     T = C.types
     members = sync_committee_members(C, state, preset)
+    positions = range(len(members)) if positions is None else positions
     domain = T.get_domain(state, T.DOMAIN_SYNC_COMMITTEE, slot // preset.slots_per_epoch,
                           preset)
     signing = T.SigningData(object_root=bytes(root), domain=domain).tree_hash_root()
-    sigs = host.sign([([secret_of(v)], wrong_root(signing) if p in forge else signing)
-                      for p, v in enumerate(members)])
+    sigs = host.sign([([secret_of(members[p])], wrong_root(signing) if p in forge
+                       else signing) for p in positions])
     size = preset.sync_subcommittee_size
     return [(T.SyncCommitteeMessage(slot=slot, beacon_block_root=bytes(root),
-                                    validator_index=v, signature=sig), p // size)
-            for p, (v, sig) in enumerate(zip(members, sigs))]
+                                    validator_index=members[p], signature=sig), p // size)
+            for p, sig in zip(positions, sigs)]
 
 
 def sync_contributions(C, state, preset, spec, secret_of, slot, root, pool, host,
@@ -4725,14 +4761,19 @@ def network_chain(C, genesis, preset, spec):
         C.hot_cold.HotColdDB(C.kv.MemoryStore(), preset, spec), genesis, preset, spec)
 
 
-def nodes_on_card(C, label, nodes):
-    """Every node's pubkey table on the card and the backend torch_cuda:
+def chain_on_card(C, label, chain):
+    """The chain's pubkey table on the card and the backend torch_cuda:
     else the phase would not verify on the card."""
-    off = [n.peer_id for n in nodes
-           if n.chain.pubkey_cache.device_table().device.type != "cuda"]
-    need(not off, f"{label}: the pubkey tables of {off} are not on the card")
+    dev = chain.pubkey_cache.device_table().device
+    need(dev.type == "cuda", f"{label}: the chain's pubkey table is on {dev}")
     need(C.api.get_backend_name() == "torch_cuda",
          f"{label}: the backend is {C.api.get_backend_name()}, not torch_cuda")
+
+
+def nodes_on_card(C, label, nodes):
+    """`chain_on_card` for every node's chain."""
+    for n in nodes:
+        chain_on_card(C, f"{label}: {n.peer_id}", n.chain)
 
 
 def network_twin(C, genesis, preset, spec, blocks, nodes, label) -> float:
@@ -5199,6 +5240,466 @@ def phase_network(torch, K, TP, B, C, reg, shared, launches, card):
     return out
 
 
+# --- the http phase: the beacon API over HTTP, keys, the validator client
+
+
+HTTP_TIMEOUT_S = 60.0  # every HTTP client's socket timeout (a 16,384-row body included)
+HTTP_EVENT_WAIT_S = 30.0  # the deadline for an SSE stream's events
+HTTP_SYNC_MESSAGES = 4  # honest sync-committee messages posted over HTTP, one call each
+HTTP_KEYSTORES = 4  # interop keys in EIP-2335 keystores: scrypt, the last one pbkdf2
+HTTP_KEY_BASE = 2000  # their interop indices from here; the remote signer's follows
+HTTP_PRESSURE_S = 10.0  # the forced queue-wait p95: 20x the admission threshold
+HTTP_GRAFFITI = b"lighthouse over http"
+VC_VALIDATORS = 16  # part (c)'s harness chain: distinct interop keys, MINIMAL
+VC_SYNC_MESSAGES = 2  # the VC's sync-committee messages posted over HTTP
+# the routes part (a) reads cold, cached and revalidated (304)
+HTTP_GET_ROUTES = ("/eth/v1/beacon/states/head/validators",
+                   "/eth/v1/beacon/states/head/committees",
+                   "/eth/v1/beacon/headers/head", "/eth/v1/beacon/genesis")
+SERVING_FAMILIES = ("SERVING_CACHE_HITS", "SERVING_CACHE_MISSES",
+                    "SERVING_CACHE_INVALIDATIONS", "SERVING_CACHE_ENTRIES",
+                    "SERVING_NOT_MODIFIED", "SERVING_SHED_READ_ONLY", "SERVING_SHED_DEBUG",
+                    "SERVING_SSE_SUBSCRIBERS", "SERVING_SSE_DROPPED", "SERVING_SSE_REJECTED",
+                    "SERVING_EVENT_RING_DROPPED", "SERVING_COALESCED")
+
+
+def http_request(url, method="GET", body=None, headers=None):
+    """(status, headers, body bytes, ms) of one request; an HTTP error
+    status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json",
+                                          **(headers or {})})
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT_S) as r:
+            status, got, payload = r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        status, got, payload = e.code, dict(e.headers), e.read()
+    return status, got, payload, (time.perf_counter() - t) * 1e3
+
+
+class SseSubscriber:
+    """A thread that reads `/eth/v1/events?topics=...&limit=n` and keeps
+    each event as (kind, payload, perf_counter at its data line); it is
+    attached to the broadcaster when the constructor returns. The server
+    closes the stream after `limit` events, or when it stops."""
+
+    def __init__(self, base, topics, limit, broadcaster):
+        import threading
+
+        self.events, self.error = [], None
+        url = f"{base}/eth/v1/events?topics={topics}&limit={limit}"
+        n0 = broadcaster.subscriber_count
+        self._thread = threading.Thread(target=self._read, args=(url,), daemon=True)
+        self._thread.start()
+        deadline = time.perf_counter() + HTTP_EVENT_WAIT_S
+        while (broadcaster.subscriber_count == n0 and self._thread.is_alive()
+               and time.perf_counter() < deadline):
+            time.sleep(0.002)
+        need(broadcaster.subscriber_count > n0,
+             f"http: the SSE subscriber did not attach ({self.error!r})")
+
+    def _read(self, url):
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(url, timeout=HTTP_EVENT_WAIT_S) as r:
+                kind = None
+                for raw in r:
+                    line = raw.decode().rstrip("\n")
+                    if line.startswith("event: "):
+                        kind = line[len("event: "):]
+                    elif line.startswith("data: "):
+                        self.events.append((kind, json.loads(line[len("data: "):]),
+                                            time.perf_counter()))
+        except Exception as e:  # noqa: BLE001 -- reported by join
+            self.error = e
+
+    def join(self):
+        self._thread.join(HTTP_EVENT_WAIT_S)
+        need(not self._thread.is_alive() and self.error is None,
+             f"http: the SSE stream did not end cleanly ({self.error!r})")
+        return self.events
+
+
+def closed_port() -> int:
+    """A port of 127.0.0.1 that nothing listens on (bound, then closed)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_mainnet(C, reg, calls, card):
+    """Part (a): the node's side at MAINNET. A BeaconChain on the
+    registry's genesis (its table on the card) behind BeaconApiServer and
+    a ServingTier whose admission reads a health source the part sets; a
+    BeaconNodeHttpClient posts block 31 (one call of its sets) while an
+    SSE subscriber waits for its block and head events; the big GETs
+    cold, cached and revalidated; the duties of every validator; sync
+    messages (one call each) and a forged one; a read-only GET shed under
+    forced pressure while a duty POST passes; /lighthouse/health and
+    /metrics."""
+    H, S, M = C.http_api, C.serving, C.metrics
+    preset, spec, host = reg.preset, reg.spec, reg.host
+    out = {}
+    t0 = time.perf_counter()
+    b31, post31 = reg.block or produce_block(C, reg.state, preset, spec, reg.secret_of, host)
+    root31 = b31.message.tree_hash_root()
+    positions = list(range(HTTP_SYNC_MESSAGES + 1))
+    msgs = sync_messages(C, post31, preset, spec, reg.secret_of, BLOCK_SLOT, root31, host,
+                         forge=(positions[-1],), positions=positions)
+    chain = network_chain(C, reg.genesis, preset, spec)
+    chain_on_card(C, "http", chain)
+    pressure = {}
+    tier = S.ServingTier(chain, S.ServingConfig(), health_source=lambda: dict(pressure))
+    server = H.BeaconApiServer(H.BeaconApi(C.vc.InProcessBeaconNode(chain)), serving=tier)
+    server.start()
+    out["setup_s"] = time.perf_counter() - t0
+    try:
+        base = f"http://127.0.0.1:{server.port}"
+        client = H.BeaconNodeHttpClient(base, preset, timeout=HTTP_TIMEOUT_S)
+        chain.slot_clock.set_slot(BLOCK_SLOT)
+        emitted = {}
+        # first of the sinks: the time an event leaves the import
+        chain.event_sinks.insert(
+            0, lambda kind, payload: emitted.setdefault(kind, time.perf_counter()))
+        sub = SseSubscriber(base, "block,head", 2, tier.broadcaster)
+        n_sets = len(b31.message.body.attestations) + 3
+        label = "http: POST /eth/v1/beacon/blocks (block 31)"
+        root, post_calls = calls.step(label, lambda: client.publish_block(b31), [n_sets])
+        need(root == root31 and chain.head_root == root31,
+             "http: block 31 is not the node's head")
+        out["post_block"] = calls.rows[label]
+        replay_step(calls, label, post_calls)
+        events = sub.join()
+        want = [("block", "0x" + root31.hex()), ("head", "0x" + root31.hex())]
+        need(sorted((k, p.get("block")) for k, p, _ in events) == want,
+             f"http: SSE events {[(k, p.get('block')) for k, p, _ in events]}")
+        out["sse_ms"] = {k: (t - emitted[k]) * 1e3 for k, _, t in events}
+        out["twin_s"] = twin_import(C, reg, [b31] if root31 not in getattr(
+            reg, "views", {}) else [])
+        need(chain_view(C, chain) == reg.views[root31],
+             "http: the head or checkpoints differ from the NO_VERIFICATION twin's")
+
+        gets = {}
+        for path in HTTP_GET_ROUTES:
+            hits0, nm0 = M.SERVING_CACHE_HITS.value, M.SERVING_NOT_MODIFIED.value
+            cold = http_request(base + path)
+            hot = http_request(base + path)
+            hits = M.SERVING_CACHE_HITS.value - hits0
+            # the conditional GET reads the cache too, then answers bodyless
+            etag = hot[1].get("ETag")
+            revalidated = http_request(base + path, headers={"If-None-Match": etag})
+            need(cold[0] == hot[0] == 200 and cold[1].get("X-Cache") == "miss"
+                 and hot[1].get("X-Cache") == "hit" and hot[2] == cold[2] and hits == 1,
+                 f"http: GET {path}: {cold[0]} {cold[1].get('X-Cache')}, then {hot[0]} "
+                 f"{hot[1].get('X-Cache')}, equal bodies {hot[2] == cold[2]}, {hits} hits")
+            need(revalidated[0] == 304 and not revalidated[2]
+                 and M.SERVING_NOT_MODIFIED.value - nm0 == 1,
+                 f"http: GET {path} with If-None-Match: {revalidated[0]}")
+            gets[path] = dict(bytes=len(cold[2]), cold_ms=cold[3], cached_ms=hot[3],
+                              not_modified_ms=revalidated[3])
+        rows = json.loads(http_request(base + HTTP_GET_ROUTES[0])[2])["data"]
+        committees = json.loads(http_request(base + HTTP_GET_ROUTES[1])[2])["data"]
+        n_committees = preset.slots_per_epoch * C.context.ConsensusContext(
+            preset, spec).committee_cache(post31, 0).committees_per_slot
+        need(len(rows) == len(reg.genesis.validators) and len(committees) == n_committees
+             and sum(len(c["validators"]) for c in committees) == len(rows),
+             f"http: {len(rows)} validator rows, {len(committees)} committees")
+        out["gets"] = gets
+
+        t = time.perf_counter()
+        duties = client.get_attester_duties(0, range(len(rows)))
+        out["attester_duties_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        proposers = client.get_proposer_duties(0)
+        out["proposer_duties_ms"] = (time.perf_counter() - t) * 1e3
+        need(sorted(d["validator_index"] for d in duties) == list(range(len(rows)))
+             and len(proposers) == preset.slots_per_epoch,
+             f"http: {len(duties)} attester duties, {len(proposers)} proposer duties")
+
+        label = "http: POST /eth/v1/beacon/pool/sync_committees"
+        _, sync_calls = calls.step(
+            label, lambda: [client.publish_sync_message(m, subnet)
+                            for m, subnet in msgs[:-1]], [1] * HTTP_SYNC_MESSAGES)
+        need(calls.rows[label]["verdicts"] == [True] * HTTP_SYNC_MESSAGES,
+             f"http: sync messages {calls.rows[label]['verdicts']}")
+        out["sync_messages"] = calls.rows[label]
+        replay_step(calls, label, sync_calls[:1])
+        refused = []
+
+        def forged():
+            try:
+                client.publish_sync_message(*msgs[-1])
+            except H.Eth2ClientError as e:
+                refused.append(str(e))
+
+        label = "http: a forged sync message"
+        calls.step(label, forged, [1])
+        need(len(refused) == 1 and "sync message rejected" in refused[0]
+             and calls.rows[label]["verdicts"] == [False],
+             f"http: the forged sync message: {refused}")
+        out["forged_sync"] = calls.rows[label]
+
+        shed0 = M.SERVING_SHED_READ_ONLY.value
+        pressure["queue_wait_p95_seconds"] = HTTP_PRESSURE_S
+        try:
+            shed = http_request(base + "/eth/v1/beacon/states/head/validators/0")
+            duty = http_request(base + "/eth/v1/validator/duties/attester/0", "POST", ["0"])
+        finally:
+            pressure.clear()
+        need(shed[0] == 503 and shed[1].get("Retry-After") == "1"
+             and M.SERVING_SHED_READ_ONLY.value - shed0 == 1 and duty[0] == 200,
+             f"http: under pressure a read-only GET gave {shed[0]} "
+             f"(Retry-After {shed[1].get('Retry-After')}), a duty POST {duty[0]}")
+        out["shed_ms"], out["admitted_duty_ms"] = shed[3], duty[3]
+        health = http_request(base + "/lighthouse/health")
+        data = json.loads(health[2])["data"]
+        need(health[0] == 200 and set(data) == {
+            "cpu_process_seconds_total", "memory_process_bytes", "process_open_fds",
+            "head_slot"} and data["head_slot"] == str(BLOCK_SLOT),
+             f"http: /lighthouse/health {health[0]} {sorted(data)}")
+        text = http_request(base + "/metrics")[2].decode()
+        missing = [f for f in SERVING_FAMILIES
+                   if f"# TYPE {getattr(M, f).name} " not in text]
+        need(not missing, f"http: /metrics lacks {missing}")
+        out["tier"] = tier.stats()
+    finally:
+        server.stop()
+    log(f"http: MAINNET: the node behind BeaconApiServer ({out['setup_s']:.1f} s with "
+        f"the sync messages signed); SSE ms from import to subscriber "
+        f"{json.dumps({k: round(v, 2) for k, v in out['sse_ms'].items()})}; GET ms cold / "
+        f"cached / 304 "
+        f"{json.dumps({p: [round(g['cold_ms'], 1), round(g['cached_ms'], 1), round(g['not_modified_ms'], 1)] for p, g in gets.items()})}"
+        f"; attester duties of {len(duties)} validators {out['attester_duties_ms']:.1f} ms, "
+        f"proposer duties {out['proposer_duties_ms']:.1f} ms; shed 503 in "
+        f"{out['shed_ms']:.1f} ms while a duty POST passed; the head the twin's; "
+        f"card: {card}")
+    return out
+
+
+def http_keys(C, reg, calls, card):
+    """Part (b): keystores, the keymanager and a remote signer. Interop
+    keys in EIP-2335 keystores imported over HTTP through a
+    KeymanagerServer into a ValidatorStore (one with a wrong password
+    refused), one more key served by a Web3SignerServer and added to the
+    store as a Web3SignerMethod; a selection proof of each key through the
+    store, all verified in one call, and again with two roots swapped."""
+    T, KS, VC = C.types, C.keystore, C.vc
+    preset, spec, state = reg.preset, reg.spec, reg.state
+    out = {}
+    t0 = time.perf_counter()
+    sks = [T.interop_secret_key(HTTP_KEY_BASE + i) for i in range(HTTP_KEYSTORES + 1)]
+    stores, encrypt_ms = [], []
+    for i, sk in enumerate(sks[:-1]):
+        t = time.perf_counter()
+        stores.append(KS.Keystore.encrypt(
+            sk, f"password {i}", path=KS.validator_path(HTTP_KEY_BASE + i),
+            kdf="pbkdf2" if i == HTTP_KEYSTORES - 1 else "scrypt",
+            scrypt_n=KS.SCRYPT_N_LIGHT))
+        encrypt_ms.append((time.perf_counter() - t) * 1e3)
+    decrypt_ms = {}
+    for kdf, ks, i in (("scrypt", stores[0], 0), ("pbkdf2", stores[-1], HTTP_KEYSTORES - 1)):
+        t = time.perf_counter()
+        need(ks.decrypt(f"password {i}").to_bytes() == sks[i].to_bytes(),
+             f"http: keys: the {kdf} keystore does not give its key back")
+        decrypt_ms[kdf] = (time.perf_counter() - t) * 1e3
+    store = VC.ValidatorStore(preset, spec)
+    km = VC.KeymanagerApi(store, bytes(state.genesis_validators_root))
+    km_server = VC.KeymanagerServer(km).start()
+    signer = VC.Web3SignerServer([sks[-1]]).start()
+    try:
+        auth = {"Authorization": f"Bearer {km.api_token}"}
+        url = km_server.url + "/eth/v1/keystores"
+        body = {"keystores": [ks.to_json() for ks in stores],
+                "passwords": ["wrong"] + [f"password {i}" for i in range(1, HTTP_KEYSTORES)]}
+        first = http_request(url, "POST", body, auth)
+        again = http_request(url, "POST", {"keystores": [stores[0].to_json()],
+                                           "passwords": ["password 0"]}, auth)
+        listed = http_request(url, headers=auth)
+        statuses = [d["status"] for d in json.loads(first[2])["data"]]
+        need(first[0] == again[0] == listed[0] == 200
+             and statuses == ["error"] + ["imported"] * (HTTP_KEYSTORES - 1)
+             and [d["status"] for d in json.loads(again[2])["data"]] == ["imported"],
+             f"http: keys: keymanager imports {statuses}, then "
+             f"{json.loads(again[2])['data']}")
+        local = sorted(d["validating_pubkey"] for d in json.loads(listed[2])["data"])
+        need(local == sorted("0x" + sk.public_key().to_bytes().hex() for sk in sks[:-1]),
+             "http: keys: the keymanager lists other keys")
+        out["import_ms"] = [first[3], again[3]]
+        remote = VC.Web3SignerMethod(signer.url, sks[-1].public_key(), timeout_s=HTTP_TIMEOUT_S)
+        store.add_validator(remote)
+        pks = [sk.public_key().to_bytes() for sk in sks]
+        need(sorted(store.voting_pubkeys()) == sorted(pks), "http: keys: the store's keys")
+        t = time.perf_counter()
+        for _ in range(3):
+            remote.sign(b"\x5a" * 32)
+        out["web3signer_ms"] = (time.perf_counter() - t) * 1e3 / 3
+        slots = [BLOCK_SLOT - i for i in range(len(sks))]
+        sigs = [store.sign_selection_proof(pk, slot, state) for pk, slot in zip(pks, slots)]
+        roots = [T.SigningData(
+            object_root=C.ssz.uint64.hash_tree_root(slot),
+            domain=T.get_domain(state, T.DOMAIN_SELECTION_PROOF,
+                                slot // preset.slots_per_epoch, preset)).tree_hash_root()
+            for slot in slots]
+        need(sigs[-1].to_bytes() == sks[-1].sign(roots[-1]).to_bytes(),
+             "http: keys: the remote signature differs from the key's own")
+        keys = [C.api.PublicKey.from_bytes(pk) for pk in pks]
+
+        def verify(order):
+            sets = [C.api.SignatureSet.single_pubkey(sig, key, roots[j])
+                    for sig, key, j in zip(sigs, keys, order)]
+            return C.api.verify_signature_sets(sets)
+
+        n = len(sks)
+        label = "http: keys: the store's and the signer's signatures"
+        ok, _ = calls.step(label, lambda: verify(range(n)), [n])
+        need(ok is True, "http: keys: the honest signatures were refused")
+        out["honest"] = calls.rows[label]
+        label = "http: keys: two roots swapped"
+        bad, _ = calls.step(label, lambda: verify([1, 0] + list(range(2, n))), [n])
+        need(bad is False, "http: keys: the swapped roots were accepted")
+        out["swapped"] = calls.rows[label]
+    finally:
+        signer.stop()
+        km_server.stop()
+    out.update(encrypt_ms=encrypt_ms, decrypt_ms=decrypt_ms,
+               seconds=time.perf_counter() - t0)
+    log(f"http: keys: {HTTP_KEYSTORES} keystores (scrypt n=2^14, the last pbkdf2 c=262144) "
+        f"encrypted in {json.dumps([round(x, 1) for x in encrypt_ms])} ms, decrypt ms "
+        f"{json.dumps({k: round(v, 1) for k, v in decrypt_ms.items()})}; imported over "
+        f"HTTP in {json.dumps([round(x, 1) for x in out['import_ms']])} ms, the wrong "
+        f"password refused; a Web3Signer round trip {out['web3signer_ms']:.1f} ms; "
+        f"{n} signatures True in one call, False with two roots swapped; "
+        f"part wall {out['seconds']:.1f} s; card: {card}")
+    return out
+
+
+def http_vc(C, calls, card):
+    """Part (c): a ValidatorClient of VC_VALIDATORS distinct interop keys
+    over BeaconNodeFallback([a client of a closed port, a live client]) of
+    a MINIMAL harness chain (altair at epoch 0, its table on the card)
+    behind BeaconApiServer, for one epoch of slots: every block proposed
+    over HTTP and imported on the card (one call a slot); then the VC's
+    sync-committee messages signed by its store and posted over HTTP
+    (the VC itself takes the head root for them from an in-process
+    node's chain only). Every head the twin's."""
+    T, H, VC, PS = C.types, C.http_api, C.vc, C.per_slot
+    preset, spec = T.MINIMAL, T.ChainSpec.interop(altair_fork_epoch=0)
+    spe = preset.slots_per_epoch
+    out = {}
+    t0 = time.perf_counter()
+    h = C.harness.BeaconChainHarness(VC_VALIDATORS, preset, spec)
+    chain_on_card(C, "http: vc", h.chain)
+    genesis = PS.clone_state(h.chain.head_state)
+    store = VC.ValidatorStore(preset, spec)
+    for i in range(VC_VALIDATORS):
+        store.add_validator(VC.LocalKeystore(T.interop_secret_key(i)))
+    server = H.BeaconApiServer(H.BeaconApi(VC.InProcessBeaconNode(h.chain)))
+    server.start()
+    out["setup_s"] = time.perf_counter() - t0
+    try:
+        live = H.BeaconNodeHttpClient(f"http://127.0.0.1:{server.port}", preset,
+                                      timeout=HTTP_TIMEOUT_S)
+        dead = H.BeaconNodeHttpClient(f"http://127.0.0.1:{closed_port()}", preset,
+                                      timeout=HTTP_TIMEOUT_S)
+        probes = []
+        healthy = dead.is_healthy
+        dead.is_healthy = lambda: probes.append(healthy()) or probes[-1]
+        vc = VC.ValidatorClient(store, VC.BeaconNodeFallback([dead, live]), preset, spec,
+                                graffiti=HTTP_GRAFFITI)
+        views, slot_s = [], []
+        for slot in range(1, spe + 1):
+            h.chain.slot_clock.set_slot(slot)
+            h.chain.on_tick()
+            label = f"http: vc: slot {slot}"
+            _, step_calls = calls.step(label, lambda: vc.on_slot(slot))
+            need(len(step_calls) == 1 and calls.rows[label]["verdicts"] == [True],
+                 f"http: vc: slot {slot}: calls {calls.rows[label]['calls']}, verdicts "
+                 f"{calls.rows[label]['verdicts']}")
+            slot_s.append(calls.rows[label]["seconds"])
+            views.append(chain_view(C, h.chain))
+        blocks = [h.store.get_block(root) for root in vc.blocks_proposed]
+        need(int(h.chain.head_state.slot) == spe and len(blocks) == spe
+             and [int(b.message.slot) for b in blocks] == list(range(1, spe + 1)),
+             f"http: vc: head at slot {h.chain.head_state.slot}, "
+             f"{len(vc.blocks_proposed)} blocks proposed")
+        need(not vc.duty_errors, f"http: vc: duty errors {vc.duty_errors}")
+        need(len(probes) >= spe and not any(probes),
+             f"http: vc: the closed port's health probes {probes}")
+        graffiti = bytes(blocks[-1].message.body.graffiti).rstrip(b"\x00")
+        need(graffiti == HTTP_GRAFFITI, f"http: vc: the head's graffiti {graffiti!r}")
+        need(vc.attestations_published >= VC_VALIDATORS and vc.aggregates_published > 0,
+             f"http: vc: {vc.attestations_published} attestations, "
+             f"{vc.aggregates_published} aggregates published")
+
+        head = h.chain.head_root
+        context = live.signing_context()
+        duties = live.get_sync_duties(0, range(VC_VALIDATORS))[:VC_SYNC_MESSAGES]
+        msgs = []
+        for d in duties:
+            pk = vc._pubkey_for_index(d["validator_index"])
+            sig = store.sign_sync_committee_message(pk, spe, head, context)
+            msgs.append((T.SyncCommitteeMessage(
+                slot=spe, beacon_block_root=head, validator_index=d["validator_index"],
+                signature=sig.to_bytes()), min(d["subnets"])))
+        label = "http: vc: sync messages over HTTP"
+        calls.step(label, lambda: [live.publish_sync_message(m, s) for m, s in msgs],
+                   [1] * len(msgs))
+        need(len(msgs) == VC_SYNC_MESSAGES
+             and calls.rows[label]["verdicts"] == [True] * VC_SYNC_MESSAGES,
+             f"http: vc: sync messages {calls.rows[label]['verdicts']}")
+        out["sync_messages"] = calls.rows[label]
+    finally:
+        server.stop()
+    t = time.perf_counter()
+    twin = network_chain(C, genesis, preset, spec)
+    NOV = C.per_block.BlockSignatureStrategy.NO_VERIFICATION
+    for b, view in zip(blocks, views):
+        twin.slot_clock.set_slot(b.message.slot)
+        twin.process_block(b, strategy=NOV)
+        need(chain_view(C, twin) == view,
+             f"http: vc: the head after slot {b.message.slot} differs from the twin's")
+    out.update(twin_s=time.perf_counter() - t, slot_s=slot_s,
+               failover_probes=len(probes), attestations=vc.attestations_published,
+               aggregates=vc.aggregates_published, seconds=time.perf_counter() - t0)
+    log(f"http: vc: {spe} slots of {VC_VALIDATORS} validators over HTTP through the "
+        f"fallback (the closed port probed and passed over {len(probes)} times): "
+        f"{len(blocks)} blocks proposed and imported on the card, "
+        f"{vc.attestations_published} attestations and {vc.aggregates_published} "
+        f"aggregates published, {VC_SYNC_MESSAGES} sync messages verified, no duty "
+        f"error, graffiti {graffiti!r}; s a slot {json.dumps([round(x, 2) for x in slot_s])}"
+        f"; every head the twin's ({out['twin_s']:.1f} s); part wall "
+        f"{out['seconds']:.1f} s; card: {card}")
+    return out
+
+
+def phase_http(torch, K, TP, B, C, reg, launches, card):
+    """The beacon API over HTTP and the validator client on the card:
+    part (a) the node's side at MAINNET, part (b) keystores, the
+    keymanager and a remote signer, part (c) a MINIMAL validator client
+    over HTTP for an epoch; every call's launches held to
+    expected_launches and its verdict to the cpu oracle's. Every server
+    is stopped before the phase returns."""
+    t_phase = time.perf_counter()
+    C.tracing.configure(clock=_WallClock())
+    calls = Calls(torch, K, TP, B, C, reg.host, launches, card)
+    out = dict(mainnet=http_mainnet(C, reg, calls, card))
+    out["keys"] = http_keys(C, reg, calls, card)
+    out["vc"] = http_vc(C, calls, card)
+    out["oracle_wait_s"] = calls.check_oracle("http")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"http: every verdict equal to the cpu oracle's (waited "
+        f"{out['oracle_wait_s']:.1f} s); phase wall {out['seconds']:.1f} s; card: {card}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -5333,6 +5834,8 @@ def main(argv=None) -> int:
             if "network" in phases:
                 paths["network"] = phase_network(torch, K, TP, B, C, reg, shared,
                                                  launches, card)
+            if "http" in phases:
+                paths["http"] = phase_http(torch, K, TP, B, C, reg, launches, card)
 
     if results:
         line = []

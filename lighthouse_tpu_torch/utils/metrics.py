@@ -7,8 +7,9 @@ device telemetry of backends/torch_cuda.py; and the families that the
 gossip attestation batches (chain/attestation_verification.py, with its
 bisection), the beacon processor, block import (chain/beacon_chain.py,
 chain/block_verification.py), the store's journal (store/kv.py),
-speculative verification (speculate/) and the validator monitor
-(chain/validator_monitor.py) feed.
+speculative verification (speculate/), the validator monitor
+(chain/validator_monitor.py), the serving tier (serving/) and the task
+executor (utils/executor.py) feed.
 
 Exported names, types and help texts are the JAX package's, so the two
 registries compare line by line. The rest of the chain family (the
@@ -686,4 +687,69 @@ VALIDATOR_MONITOR_SYNC_SIGNATURES = REGISTRY.counter(
 VALIDATOR_MONITOR_SLASHED = REGISTRY.counter(
     "validator_monitor_slashings_total",
     "Slashings naming monitored validators",
+)
+
+# -- serving tier (serving/: response cache, SSE fan-out, admission) ---------
+
+SERVING_CACHE_HITS = REGISTRY.counter(
+    "http_serving_cache_hits_total",
+    "GET responses served from the anchored response cache without "
+    "invoking the BeaconApi handler",
+)
+SERVING_CACHE_MISSES = REGISTRY.counter(
+    "http_serving_cache_misses_total",
+    "Cacheable GETs that had to invoke the underlying handler",
+)
+SERVING_CACHE_INVALIDATIONS = REGISTRY.counter(
+    "http_serving_cache_invalidations_total",
+    "Entries dropped because a head/finality event moved their anchor",
+)
+SERVING_CACHE_ENTRIES = REGISTRY.gauge(
+    "http_serving_cache_entries",
+    "Entries currently held by the response cache (LRU-bounded)",
+)
+SERVING_NOT_MODIFIED = REGISTRY.counter(
+    "http_serving_not_modified_total",
+    "Conditional GETs answered 304 via If-None-Match ETag revalidation",
+)
+SERVING_SHED_READ_ONLY = REGISTRY.counter(
+    "http_serving_shed_read_only_total",
+    "Read-only-lane requests shed with 503 + Retry-After under "
+    "processor backpressure",
+)
+SERVING_SHED_DEBUG = REGISTRY.counter(
+    "http_serving_shed_debug_total",
+    "Debug-lane requests shed with 503 + Retry-After under processor "
+    "backpressure",
+)
+SERVING_SSE_SUBSCRIBERS = REGISTRY.gauge(
+    "http_serving_sse_subscribers",
+    "Live SSE subscribers currently attached to the event broadcaster",
+)
+SERVING_SSE_DROPPED = REGISTRY.counter(
+    "http_serving_sse_dropped_events_total",
+    "Events dropped from per-subscriber ring buffers (slow consumers)",
+)
+SERVING_SSE_REJECTED = REGISTRY.counter(
+    "http_serving_sse_rejected_total",
+    "SSE subscriptions refused because the concurrent-subscriber cap "
+    "was reached",
+)
+SERVING_EVENT_RING_DROPPED = REGISTRY.counter(
+    "http_serving_event_ring_dropped_total",
+    "Oldest events evicted from the bounded replay ring (api.events)",
+)
+SERVING_COALESCED = REGISTRY.counter(
+    "http_serving_coalesced_requests_total",
+    "Cache-miss GETs coalesced onto another in-flight computation of the "
+    "same (route, params, anchor) key (singleflight followers)",
+)
+
+# -- the task-executor metric family (task_executor/src/metrics.rs) -----------
+
+EXECUTOR_TASKS_SPAWNED = REGISTRY.counter(
+    "executor_tasks_spawned_total", "Tasks spawned via TaskExecutor"
+)
+EXECUTOR_TASK_PANICS = REGISTRY.counter(
+    "executor_task_panics_total", "Tasks that died with an exception"
 )

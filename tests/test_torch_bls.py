@@ -234,7 +234,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "network/wire.py", "network/wire_fabric.py", "network/__init__.py",
                 "slasher/slasher.py", "slasher/service.py", "slasher/__init__.py",
                 "crypto/aes.py", "validator_client/slashing_protection.py",
-                "validator_client/validator_store.py", "validator_client/byzantine.py"):
+                "validator_client/validator_store.py", "validator_client/byzantine.py",
+                "utils/executor.py", "utils/monitoring.py", "serving/__init__.py",
+                "serving/admission.py", "serving/cache.py", "serving/sse.py",
+                "serving/tier.py", "http_api/__init__.py", "http_api/api.py",
+                "http_api/server.py", "http_api/client.py", "crypto/keystore.py",
+                "validator_client/signing_method.py", "validator_client/keymanager.py",
+                "validator_client/services.py"):
         assert "lighthouse_tpu_torch/" + mod in walked, mod
     assert len(_port_files()) > 10
     assert not bad, bad

@@ -10,8 +10,9 @@ the oracle's verdict over parts), of the sync and pool phases, and of
 the genesis and finality phases (the deposits and their tree, the EF
 tree's BLS cases through the port's walker on the cpu oracle, the
 harness's first blocks over a NativeStore, a forged block, fsck and the
-store reopened). (The script itself needs a card: `python3
-chip_smoke.py`.)"""
+store reopened), and of the http phase (the card checks on its chains,
+its request and SSE helpers over a server). (The script itself needs a
+card: `python3 chip_smoke.py`.)"""
 
 import importlib.util
 import re
@@ -193,7 +194,7 @@ def test_pipeline_phase_runs_last_on_warmed_buckets():
     # after it only the phases that reuse none of its state
     assert CS.ALL_PHASES[at + 1:] == ("monolith", "windowed", "correct", "adversary",
                                       "block", "attestations", "chain", "sync", "pool",
-                                      "genesis", "finality", "merge", "network")
+                                      "genesis", "finality", "merge", "network", "http")
     warm = set(B.DEFAULT_WARM_BUCKETS)
     assert [b for b in CS.PIPELINE_BUCKETS if b not in warm] == [(1024, 4, 32)]
     assert (16, 4, 16) in warm and S.warm_capacity(64) == 64
@@ -410,8 +411,8 @@ def test_block_and_attestations_phases_run_last():
     """Last but for the chain phase, which imports the block phase's block,
     the sync and pool phases, which go on from its chain, the genesis
     and finality phases, which run over their own MINIMAL chains, and the
-    merge and network phases."""
-    assert CS.ALL_PHASES[-9:-7] == ("block", "attestations")
+    merge, network and http phases."""
+    assert CS.ALL_PHASES[-10:-8] == ("block", "attestations")
     assert "block " in CS.__doc__ and "attestations " in CS.__doc__
     assert CS.BLOCK_VALIDATORS // 32 // 128 == 4 and CS.BLOCK_DISTINCT_KEYS >= 1024
     assert (CS.GOSSIP_UNAGGREGATED, CS.GOSSIP_AGGREGATES) == (64, 32)
@@ -532,7 +533,7 @@ def test_gossip_through_the_processor_isolates_forgeries(minimal_chain):
 
 def test_chain_phase_runs_after_block_and_attestations():
     """It imports the block phase's block, over the registry they share."""
-    assert CS.ALL_PHASES[-9:-6] == ("block", "attestations", "chain")
+    assert CS.ALL_PHASES[-10:-7] == ("block", "attestations", "chain")
     assert "chain " in CS.__doc__
     assert CS.CHAIN_SEGMENT == 4 and 0 < CS.CHAIN_FORGED < CS.CHAIN_SEGMENT
 
@@ -751,7 +752,7 @@ def test_chain_verdicts_on_the_card(minimal_import, backend):
 def test_sync_and_pool_phases_run_last_on_the_chain():
     """They go on from the chain phase's chain: asked for without it, the
     script stops before it touches a card."""
-    assert CS.ALL_PHASES[-6:-4] == ("sync", "pool")
+    assert CS.ALL_PHASES[-7:-5] == ("sync", "pool")
     assert "sync " in CS.__doc__ and "pool " in CS.__doc__
     with pytest.raises(SystemExit, match="chain"):
         CS.main(["--phases", "build,sync"])
@@ -922,7 +923,7 @@ def test_genesis_and_finality_phases_run_last():
     """After the pool phase and before merge, each over its own MINIMAL
     chain; every call kind they add runs the pairs expected_launches is
     held to."""
-    assert CS.ALL_PHASES[-4:-2] == ("genesis", "finality")
+    assert CS.ALL_PHASES[-5:-3] == ("genesis", "finality")
     assert "genesis " in CS.__doc__ and "finality " in CS.__doc__
     assert CS.GENESIS_DEPOSITS == 64 and 0 < CS.GENESIS_FORGED_AT < CS.GENESIS_DEPOSITS
     assert CS.EF_KINDS == ("verify", "fast_aggregate_verify", "aggregate_verify",
@@ -1069,7 +1070,7 @@ def test_finality_phase_harness_over_a_native_store(tmp_path):
 
 
 def test_merge_phase_runs_last_on_the_registry():
-    """Last but for the network phase; it goes on from the registry (built
+    """Last but for the network and http phases; it goes on from the registry (built
     when merge is asked for),
     and its MAINNET chain takes the registry's genesis unchanged: the
     genesis root is the same with bellatrix at epoch 1 and the mock
@@ -1078,7 +1079,7 @@ def test_merge_phase_runs_last_on_the_registry():
     from lighthouse_tpu_torch import types as T
     from lighthouse_tpu_torch.ssz import cached_root
 
-    assert CS.ALL_PHASES[-2] == "merge" and "merge " in CS.__doc__
+    assert CS.ALL_PHASES[-3] == "merge" and "merge " in CS.__doc__
     assert CS.MERGE_BLOCKS == 3 and CS.MERGE_VALIDATORS == 64
     C = CS.consensus_modules()
     engine = X.MockExecutionEngine(T.types_for(T.MINIMAL))
@@ -1124,9 +1125,10 @@ def test_engine_rig_times_every_notify_and_stops():
 
 
 def test_network_phase_runs_last_on_the_registry():
-    """Last, over the registry the block, chain and merge phases share; its
-    wire part takes the finality phase's chain when that phase ran."""
-    assert CS.ALL_PHASES[-1] == "network" and "network " in CS.__doc__
+    """Last but for the http phase, over the registry the block, chain and
+    merge phases share; its wire part takes the finality phase's chain when
+    that phase ran."""
+    assert CS.ALL_PHASES[-2] == "network" and "network " in CS.__doc__
     assert "network" in CS.REGISTRY_PHASES and "merge" in CS.REGISTRY_PHASES
     assert CS.ALL_PHASES.index("finality") < CS.ALL_PHASES.index("network")
     assert CS.NETWORK_ATTESTATIONS == 64 and CS.CHAIN_SEGMENT == 4
@@ -1135,7 +1137,7 @@ def test_network_phase_runs_last_on_the_registry():
 
 @pytest.mark.parametrize("table, backend_name, fails", [
     ("cuda", "torch_cuda", None),
-    ("cpu", "torch_cuda", "pubkey tables of \\['a'\\] are not on the card"),
+    ("cpu", "torch_cuda", "network: a: the chain's pubkey table is on cpu"),
     ("cuda", "fake", "the backend is fake, not torch_cuda"),
 ])
 def test_network_nodes_need_their_tables_on_the_card_and_torch_cuda(
@@ -1251,3 +1253,75 @@ def test_timed_attrs_label_and_restore():
     assert mod.f is f0 and "g" not in vars(obj)
     assert [label for label, _ in sink] == ["mod.f", "Obj.g"]
     assert CS.timed_ms(sink + [("mod.f", 0.5)])["mod.f"][0] == 2
+
+
+# --- the http phase's host side, at MINIMAL -------------------------------------
+
+
+def test_http_phase_runs_last_on_the_registry():
+    """Last, over the registry (block 31 and its bucket from the block
+    phase); its MINIMAL validator client stays at 16 distinct keys."""
+    assert CS.ALL_PHASES[-1] == "http" and "http " in CS.__doc__
+    assert "http" in CS.REGISTRY_PHASES
+    assert CS.ALL_PHASES.index("network") < CS.ALL_PHASES.index("http")
+    assert CS.VC_VALIDATORS == 16 and CS.HTTP_SYNC_MESSAGES >= 1
+    assert len(CS.SERVING_FAMILIES) == 12
+    from lighthouse_tpu_torch.utils import metrics as M
+
+    assert all(hasattr(M, name) for name in CS.SERVING_FAMILIES)
+
+
+@pytest.mark.parametrize("table, backend_name, fails", [
+    ("cuda", "torch_cuda", None),
+    ("cpu", "torch_cuda", "http: the chain's pubkey table is on cpu"),
+    ("cuda", "fake", "the backend is fake, not torch_cuda"),
+])
+def test_http_chain_needs_its_table_on_the_card_and_torch_cuda(
+        minimal_import, backend, monkeypatch, table, backend_name, fails):
+    from types import SimpleNamespace
+
+    C, genesis, preset, spec = minimal_import[:4]
+    chain = _chain_on(C, genesis, preset, spec)
+    if table == "cuda":
+        monkeypatch.setattr(chain.pubkey_cache, "device_table",
+                            lambda: SimpleNamespace(device=SimpleNamespace(type="cuda")))
+    backend(backend_name, device="cpu") if backend_name == "torch_cuda" else backend(
+        backend_name)
+    if fails is None:
+        CS.chain_on_card(C, "http", chain)
+    else:
+        with pytest.raises(CS.Fail, match=fails):
+            CS.chain_on_card(C, "http", chain)
+
+
+def test_http_helpers_over_a_server(minimal_import, backend):
+    """http_request returns error statuses; the SSE subscriber attaches
+    before the constructor returns and reads the block and head events of
+    two imports; closed_port gives a refused connection."""
+    import urllib.error
+    import urllib.request
+
+    C, genesis, preset, spec, blocks = minimal_import[:5]
+    backend("fake")
+    chain = _chain_on(C, genesis, preset, spec)
+    server = C.http_api.BeaconApiServer(C.http_api.BeaconApi(
+        C.vc.InProcessBeaconNode(chain)))
+    server.start()
+    try:
+        base = f"http://127.0.0.1:{server.port}"
+        status, headers, body, ms = CS.http_request(base + "/eth/v1/no/route")
+        assert status == 404 and b"no route" in body and ms > 0
+        sub = CS.SseSubscriber(base, "block,head", 4, server.serving.broadcaster)
+        for b in blocks[:2]:
+            chain.slot_clock.set_slot(b.message.slot)
+            chain.process_block(b)
+        events = sub.join()
+        assert sorted(k for k, _, _ in events) == ["block", "block", "head", "head"]
+        roots = {p["block"] for _, p, _ in events}
+        assert roots == {"0x" + b.message.tree_hash_root().hex() for b in blocks[:2]}
+        status, headers, _, _ = CS.http_request(base + "/eth/v1/beacon/genesis")
+        assert status == 200 and headers["X-Cache"] == "miss"
+    finally:
+        server.stop()
+    with pytest.raises(urllib.error.URLError):
+        urllib.request.urlopen(f"http://127.0.0.1:{CS.closed_port()}/", timeout=5)

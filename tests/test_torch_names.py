@@ -7,8 +7,8 @@ consensus modules the port copies (ssz/, types/, utils/, state_transition/ but
 per_epoch_mesh,
 store/, fork_choice/, chain/, pool/, processor/, speculate/, resilience/,
 harness/ and ef_tests.py; eth1/, execution_layer/, network/, slasher/,
-crypto/aes.py, utils/jsonrpc.py and validator_client/{beacon_node,
-slashing_protection,validator_store,byzantine}.py); every
+crypto/aes.py, crypto/keystore.py, utils/jsonrpc.py, utils/{executor,
+monitoring}.py, serving/, http_api/ and validator_client/); every
 name a package `__init__.py` of those exports is exported by the port's,
 or stands on the list below with the ROADMAP item that brings it, and
 ROADMAP.md names it. The JAX files are parsed, not imported: nothing
@@ -82,6 +82,11 @@ CONSUMERS = {
         "slasher/slasher.py", "slasher/service.py", "crypto/aes.py",
         "validator_client/slashing_protection.py",
         "validator_client/validator_store.py", "validator_client/byzantine.py",
+        "utils/executor.py", "utils/monitoring.py", "serving/admission.py",
+        "serving/cache.py", "serving/sse.py", "serving/tier.py", "http_api/api.py",
+        "http_api/server.py", "http_api/client.py", "crypto/keystore.py",
+        "validator_client/signing_method.py", "validator_client/keymanager.py",
+        "validator_client/services.py",
     )
 }
 
@@ -92,18 +97,14 @@ WAITING = {
         "PLANS", "InvariantViolation", "Phase", "ScenarioPlan", "SLO",
         "assert_bit_identical_replay", "run_scenario"),
         "harness/scenario.py (ROADMAP Queue 1 item 14.8, step 5)"),
-    "validator_client/__init__.py": dict.fromkeys((
-        "KeymanagerApi", "KeymanagerServer", "BeaconNodeFallback", "DutiesService",
-        "NoHealthyBeaconNode", "ValidatorClient", "Web3SignerError", "Web3SignerMethod",
-        "Web3SignerServer"),
-        "validator_client/ (ROADMAP Queue 1 item 14.8, step 5)"),
 }
 INITS = ("ssz/__init__.py", "types/__init__.py", "state_transition/__init__.py",
          "chain/__init__.py", "pool/__init__.py", "processor/__init__.py",
          "fork_choice/__init__.py", "store/__init__.py",
          "execution_layer/__init__.py", "speculate/__init__.py", "eth1/__init__.py",
          "network/__init__.py", "harness/__init__.py", "resilience/__init__.py",
-         "validator_client/__init__.py", "slasher/__init__.py")
+         "validator_client/__init__.py", "slasher/__init__.py",
+         "http_api/__init__.py", "serving/__init__.py")
 
 
 def _public_names(path: Path) -> set:
