@@ -586,24 +586,22 @@ class BeaconChain:
 
         # the block row, its post-state, the post-state mapping, and any
         # OTB marker commit as ONE atomic batch: a crash mid-import can
-        # never store a block whose state (or mapping) is missing. The
-        # `store` span is the port's own: the JAX package times no store write
-        with tracing.span("store"):
-            import_batch = self.store.batch()
-            self.store.put_block(block_root, signed_block, batch=import_batch)
-            # drop the incremental-hash cache before retaining: stored states
-            # are never re-rooted in place (later work clones them), so keeping
-            # the merkle layers would ~double per-state memory for nothing
-            state.__dict__.pop("_lh_tree_cache", None)
-            self.store.put_state(state_root, state, batch=import_batch)
+        # never store a block whose state (or mapping) is missing
+        import_batch = self.store.batch()
+        self.store.put_block(block_root, signed_block, batch=import_batch)
+        # drop the incremental-hash cache before retaining: stored states
+        # are never re-rooted in place (later work clones them), so keeping
+        # the merkle layers would ~double per-state memory for nothing
+        state.__dict__.pop("_lh_tree_cache", None)
+        self.store.put_state(state_root, state, batch=import_batch)
+        import_batch.stage_chain_item(
+            b"block_post_state:" + block_root, state_root
+        )
+        if otb_parent_hash is not None:
             import_batch.stage_chain_item(
-                b"block_post_state:" + block_root, state_root
+                b"otb:" + block_root, otb_parent_hash
             )
-            if otb_parent_hash is not None:
-                import_batch.stage_chain_item(
-                    b"otb:" + block_root, otb_parent_hash
-                )
-            import_batch.commit()
+        import_batch.commit()
         self._states[block_root] = state
         self.early_attester_cache.add(self.preset, block_root, block, state)
         if otb_parent_hash is not None:

@@ -254,6 +254,10 @@ def build() -> dict:
                 "-Xcompiler", "-fPIC", "-Xptxas", "-v",
                 "-I", str(CSRC), "-o", str(so) + ".tmp", str(CSRC / src),
             ]
+            # lint: allow[blocking-under-lock] -- the build runs once a
+            # process: a second caller must wait until the libraries are
+            # loaded, not start a second nvcc over the same .tmp output or
+            # bind a library that is still being written
             procs[name] = (so, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             ))

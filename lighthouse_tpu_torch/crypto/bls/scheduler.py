@@ -16,8 +16,8 @@ Model:
   * ``submit(sets, lane=..., seed=..., slot=..., device=...)`` lands the
     batch in a per-lane deadline queue and returns a
     :class:`ScheduledVerify` future; nothing dispatches yet unless the
-    queued real-set count crosses the launch threshold (``max_sets``,
-    64 by default).
+    queued real-set count crosses the launch threshold
+    (``LIGHTHOUSE_TPU_CONT_BATCH_MAX_SETS``, read per call, 64 by default).
   * At each launch boundary (threshold crossing, a ``result()`` on a
     queued entry, ``drain()``) the scheduler merges everything admitted
     into ONE device launch via ``pipeline.submit(..., pad_to=capacity)``.
@@ -65,6 +65,12 @@ WARM_CAPACITIES = (4, 16, 64, 256, 512)
 MAX_LAUNCH_SETS = WARM_CAPACITIES[-1]
 
 _FAR_DEADLINE = 1 << 62  # slot=None sorts after every real deadline
+
+
+def _max_sets() -> int:
+    """Queued real-set count that triggers an immediate launch; read per
+    call so benches/tests retune without reconfiguring."""
+    return int(os.environ.get("LIGHTHOUSE_TPU_CONT_BATCH_MAX_SETS", "64"))
 
 
 def enabled() -> bool:
@@ -161,14 +167,12 @@ class ContinuousBatchScheduler:
     (so ``bls_pipeline.configure`` keeps applying mid-process);
     ``slot_clock`` is the injected chain clock the per-lane verdict-delay
     histograms are measured against (None disables the observation, the
-    counters still run); ``max_sets`` is the queued real-set count that
-    launches at once.
+    counters still run).
     """
 
-    def __init__(self, pipeline=None, slot_clock=None, max_sets: int = 64):
+    def __init__(self, pipeline=None, slot_clock=None):
         self._pipeline = pipeline
         self.slot_clock = slot_clock
-        self.max_sets = max_sets
         # launch serialization (LOCK_ORDER
         # `ContinuousBatchScheduler._launch_lock`): one flush admits and
         # dispatches at a time -- the pipeline's submit path is not
@@ -242,7 +246,7 @@ class ContinuousBatchScheduler:
                 len(e.sets) for e in self._queued if e.lane != "speculative"
             )
             self._sample_depths()
-        if real_queued >= self.max_sets:
+        if real_queued >= _max_sets():
             self.flush()
         return ScheduledVerify(self, entry)
 

@@ -23,13 +23,17 @@ ids from the ambient span context, so a seeded run exports a
 byte-identical dump. Derived stats are pure functions of a record list
 (:func:`stats_from_records`), rendered by :func:`format_report`.
 
-The process ledger records into a ring of ``DEFAULT_CAPACITY`` records;
-:func:`configure` replaces it (a clock, a capacity, ``enabled=False``).
+``LIGHTHOUSE_TPU_LEDGER=0`` disables recording (the seams early-out);
+``LIGHTHOUSE_TPU_LEDGER_CAPACITY`` sizes the ring (default
+``DEFAULT_CAPACITY``, 4096); both are read per call, as the JAX package
+reads them. :func:`configure` replaces the process ledger (a clock, a
+capacity, ``enabled=False``).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import threading
 from collections import deque
 
@@ -90,8 +94,10 @@ class Ledger:
     no clock read, no tracer call, no metric -- happens inside it.
     """
 
-    def __init__(self, clock=None, capacity: int = DEFAULT_CAPACITY,
+    def __init__(self, clock=None, capacity: int | None = None,
                  enabled: bool = True):
+        if capacity is None:
+            capacity = _default_capacity()
         self._clock = clock
         self.capacity = int(capacity)
         self.enabled = enabled
@@ -384,6 +390,22 @@ def format_report(stats: dict, lanes: dict | None = None) -> str:
 
 # -- module-level default (the seat the seams consult) ------------------------
 
+
+def _default_capacity() -> int:
+    try:
+        return int(os.environ.get("LIGHTHOUSE_TPU_LEDGER_CAPACITY",
+                                  str(DEFAULT_CAPACITY)))
+    except ValueError:
+        return DEFAULT_CAPACITY
+
+
+def enabled() -> bool:
+    """The ledger records unless explicitly disabled
+    (`LIGHTHOUSE_TPU_LEDGER=0`); read per call so operators and tests
+    flip it without reimport."""
+    return os.environ.get("LIGHTHOUSE_TPU_LEDGER", "1") != "0"
+
+
 _DEFAULT: Ledger | None = None
 
 
@@ -405,5 +427,7 @@ def configure(**kwargs) -> Ledger:
 def record(kind: str, **fields) -> None:
     """The seam entry point: append one launch record to the CURRENT
     default ledger (looked up per call, so configure() swaps apply
-    mid-process); no-op when that ledger is disabled."""
+    mid-process); no-op when disabled."""
+    if not enabled():
+        return
     default_ledger().record(kind, **fields)

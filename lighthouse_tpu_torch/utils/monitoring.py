@@ -212,6 +212,18 @@ class MonitoringRig:
         self._server.server_close()
 
 
+# the process registry's histograms that `trace_health_fields` reads: each
+# health field and the histogram's name in utils/metrics. Named here so
+# that a caller that must start them fresh (the scenario phase of
+# chip_smoke.py, the tests) reads the same list.
+HEALTH_HISTOGRAMS = (
+    ("queue_wait", "PROCESSOR_QUEUE_WAIT"),
+    ("block_observed_delay", "BLOCK_OBSERVED_DELAY"),
+    ("block_imported_delay", "BLOCK_IMPORTED_DELAY"),
+    ("block_head_delay", "BLOCK_HEAD_DELAY"),
+)
+
+
 def trace_health_fields(tracer=None) -> dict:
     """Trace/metrics-derived health: p95 work-span durations per
     processor lane (from the span ring) plus queue-wait and slot-delay
@@ -231,14 +243,8 @@ def trace_health_fields(tracer=None) -> dict:
         durs.sort()
         idx = min(len(durs) - 1, int(0.95 * len(durs)))
         fields[f"work_p95_{lane}_seconds"] = round(durs[idx], 9)
-    pairs = (
-        ("queue_wait", M.PROCESSOR_QUEUE_WAIT),
-        ("block_observed_delay", M.BLOCK_OBSERVED_DELAY),
-        ("block_imported_delay", M.BLOCK_IMPORTED_DELAY),
-        ("block_head_delay", M.BLOCK_HEAD_DELAY),
-    )
-    for name, hist in pairs:
-        v = hist.quantile(0.95)
+    for name, metric in HEALTH_HISTOGRAMS:
+        v = getattr(M, metric).quantile(0.95)
         if v is not None:
             fields[f"{name}_p95_seconds"] = v
     return fields

@@ -5,10 +5,9 @@ This module is the ONE place consensus time enters the system: chain /
 fork-choice / state-transition code takes a clock (or a timestamp) as a
 parameter and never reads the wall clock directly -- that invariant is
 enforced by `python -m tools.lint` (rule `wallclock`).
-
-The port's copy of lighthouse_tpu/utils/slot_clock.py.
 """
 # lint: allow-file[wallclock] -- the slot clock IS the injection boundary
+# (The port's copy of lighthouse_tpu/utils/slot_clock.py.)
 
 from __future__ import annotations
 

@@ -9,8 +9,8 @@ Time comes from an injected clock with ``now()`` and ids from an injected
 bit-identical trace. Finished spans land in a bounded ring (overflow
 drops the oldest and counts) and export as Chrome trace-event JSON.
 ``sample_rate`` keeps 1-in-N traces, decided from the root span's trace
-id (the process default keeps every trace; tests pass their own rate to
-:func:`configure`).
+id; ``LIGHTHOUSE_TPU_TRACE_SAMPLE`` seeds the process default (1.0, every
+trace), and tests pass their own rate to :func:`configure`.
 
 The verification seam opens the same spans as the JAX package:
 ``pipeline_submit`` and ``pipeline_resolve`` (crypto/bls/pipeline.py),
@@ -319,7 +319,13 @@ _DEFAULT: Tracer | None = None
 def default_tracer() -> Tracer:
     global _DEFAULT
     if _DEFAULT is None:
-        _DEFAULT = Tracer()
+        import os
+
+        try:
+            rate = float(os.environ.get("LIGHTHOUSE_TPU_TRACE_SAMPLE", "1"))
+        except ValueError:
+            rate = 1.0
+        _DEFAULT = Tracer(sample_rate=rate)
     return _DEFAULT
 
 

@@ -14,9 +14,12 @@ store reopened), and of the http phase (the card checks on its chains,
 its request and SSE helpers over a server). (The script itself needs a
 card: `python3 chip_smoke.py`.)"""
 
+import glob
 import importlib.util
+import os
 import re
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 
@@ -194,7 +197,8 @@ def test_pipeline_phase_runs_last_on_warmed_buckets():
     # after it only the phases that reuse none of its state
     assert CS.ALL_PHASES[at + 1:] == ("monolith", "windowed", "correct", "adversary",
                                       "block", "attestations", "chain", "sync", "pool",
-                                      "genesis", "finality", "merge", "network", "http")
+                                      "genesis", "finality", "merge", "network", "http",
+                                      "scenario")
     warm = set(B.DEFAULT_WARM_BUCKETS)
     assert [b for b in CS.PIPELINE_BUCKETS if b not in warm] == [(1024, 4, 32)]
     assert (16, 4, 16) in warm and S.warm_capacity(64) == 64
@@ -411,12 +415,12 @@ def test_block_and_attestations_phases_run_last():
     """Last but for the chain phase, which imports the block phase's block,
     the sync and pool phases, which go on from its chain, the genesis
     and finality phases, which run over their own MINIMAL chains, and the
-    merge, network and http phases."""
-    assert CS.ALL_PHASES[-10:-8] == ("block", "attestations")
+    merge, network and http phases, and the scenario phase."""
+    assert CS.ALL_PHASES[-11:-9] == ("block", "attestations")
     assert "block " in CS.__doc__ and "attestations " in CS.__doc__
     assert CS.BLOCK_VALIDATORS // 32 // 128 == 4 and CS.BLOCK_DISTINCT_KEYS >= 1024
     assert (CS.GOSSIP_UNAGGREGATED, CS.GOSSIP_AGGREGATES) == (64, 32)
-    assert [len(b) for b in CS.FORGED_UNAGGREGATED] == [1, 3]
+    assert [len(b) for b in CS.FORGED_UNAGGREGATED] == [1]
     assert [len(b) for b in CS.FORGED_AGGREGATES] == [1]
 
 
@@ -533,7 +537,7 @@ def test_gossip_through_the_processor_isolates_forgeries(minimal_chain):
 
 def test_chain_phase_runs_after_block_and_attestations():
     """It imports the block phase's block, over the registry they share."""
-    assert CS.ALL_PHASES[-10:-7] == ("block", "attestations", "chain")
+    assert CS.ALL_PHASES[-11:-8] == ("block", "attestations", "chain")
     assert "chain " in CS.__doc__
     assert CS.CHAIN_SEGMENT == 4 and 0 < CS.CHAIN_FORGED < CS.CHAIN_SEGMENT
 
@@ -581,6 +585,11 @@ def minimal_import():
     forged, _ = CS.produce_segment(C, posts[0], preset, spec, secret_of, host, 1,
                                    forge=1)
     return C, genesis, preset, spec, segment, posts, [segment[0]] + forged
+
+
+def _ssz(state):
+    """A state as a Twin takes its genesis: (fork, SSZ bytes)."""
+    return state.fork_name, state.as_ssz_bytes()
 
 
 def _chain_on(C, genesis, preset, spec, device="cpu"):
@@ -648,6 +657,50 @@ def test_chain_phase_segment_links_in_one_call(minimal_import, backend, monkeypa
         twin.slot_clock.set_slot(b.message.slot)
         twin.process_block(b, strategy=C.per_block.BlockSignatureStrategy.NO_VERIFICATION)
     assert CS.chain_view(C, twin) == CS.chain_view(C, chain)
+
+
+def test_twin_in_its_worker_holds_the_chain_to_its_view(minimal_import, monkeypatch):
+    """A Twin in its own worker process (`twin_worker`) gets the genesis
+    and the blocks as SSZ, imports them with NO_VERIFICATION and gives
+    back its view after each: the chain that imported the same blocks
+    here is held equal to it at its head. (The worker imports the script
+    by its name, as it imports the script's own `__main__` in a run.)"""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "chip_smoke", CS)
+    C, genesis, preset, spec, segment = minimal_import[:5]
+    chain = _chain_on(C, genesis, preset, spec)
+    for b in segment:
+        chain.slot_clock.set_slot(b.message.slot)
+        chain.process_block(b, strategy=C.per_block.BlockSignatureStrategy.NO_VERIFICATION)
+    with CS.twin_worker() as worker:
+        twin = CS.Twin(_ssz(genesis), preset, spec, worker=worker)
+        twin.import_(segment[:2])
+        twin.import_(segment)  # the first two are not given again
+        twin.expect("t", chain, C)
+        twin.check()
+        twin.close()
+    assert [b.message.tree_hash_root() for b in twin.imported] == [
+        b.message.tree_hash_root() for b in segment]
+    assert set(twin.views) == set(b.message.tree_hash_root() for b in segment)
+    assert twin.seconds > 0
+
+
+def test_adversary_host_paths_survive_the_trip_to_a_worker():
+    """The adversary phase runs the host-only paths of each batch on the
+    host pool: a batch pickled as the pool sends it gets the verdicts the
+    same paths give it here, and the card's paths and the host's make up
+    the matrix's paths but the mesh."""
+    import pickle
+
+    from lighthouse_tpu_torch.crypto.bls import adversary as A
+
+    assert CS.ADVERSARY_PATHS == tuple(p for p in A.PATHS if p != "mesh_grouped")
+    assert set(CS.HOST_PATHS) < set(CS.ADVERSARY_PATHS)
+    probe = A.BATCHES["weight-collision"](0)[0]
+    got = CS._host_paths(pickle.loads(pickle.dumps(probe)), 11, CS.HOST_PATHS)
+    assert got == {p: A.run_path(p, probe, seed=11) for p in CS.HOST_PATHS}
+    assert got == {"cpu": False, "fallback": False}
 
 
 def test_chain_phase_forged_segment_rejected_on_the_cpu_oracle(minimal_import, backend):
@@ -752,7 +805,7 @@ def test_chain_verdicts_on_the_card(minimal_import, backend):
 def test_sync_and_pool_phases_run_last_on_the_chain():
     """They go on from the chain phase's chain: asked for without it, the
     script stops before it touches a card."""
-    assert CS.ALL_PHASES[-7:-5] == ("sync", "pool")
+    assert CS.ALL_PHASES[-8:-6] == ("sync", "pool")
     assert "sync " in CS.__doc__ and "pool " in CS.__doc__
     with pytest.raises(SystemExit, match="chain"):
         CS.main(["--phases", "build,sync"])
@@ -781,8 +834,10 @@ def minimal_head(minimal_import):
         return T.interop_secret_key(i % 16).scalar
 
     host = CS.HostCrypto()
+    twin = CS.Twin(_ssz(genesis), preset, spec)
+    twin.import_(segment)
     reg = SimpleNamespace(chain=chain, genesis=genesis, preset=preset, spec=spec,
-                          imported=list(segment), twin=None)
+                          twin=twin)
     msgs = CS.sync_messages(C, chain.head_state, preset, spec, secret_of, 4,
                             chain.head_root, host)
     return C, reg, secret_of, host, msgs
@@ -828,8 +883,10 @@ def test_sync_phase_items_through_the_processor_fill_the_pools(minimal_head, bac
     block, _ = CS.produce_block(C, pre, preset, spec, secret_of, host, sync_aggregate=agg)
     chain.slot_clock.set_slot(5)
     assert chain.process_block(block) == block.message.tree_hash_root()
-    CS.twin_check(C, reg, [block], "sync")
-    assert reg.twin is not None and len(reg.imported) == 5
+    reg.twin.import_([block])
+    reg.twin.expect("sync", chain, C)
+    reg.twin.check()
+    assert len(reg.twin.imported) == 5 and block.message.tree_hash_root() in reg.twin.views
 
 
 def test_sync_phase_light_client_update_verifies_on_the_cpu_oracle(minimal_head, backend):
@@ -923,9 +980,10 @@ def test_genesis_and_finality_phases_run_last():
     """After the pool phase and before merge, each over its own MINIMAL
     chain; every call kind they add runs the pairs expected_launches is
     held to."""
-    assert CS.ALL_PHASES[-5:-3] == ("genesis", "finality")
+    assert CS.ALL_PHASES[-6:-4] == ("genesis", "finality")
     assert "genesis " in CS.__doc__ and "finality " in CS.__doc__
-    assert CS.GENESIS_DEPOSITS == 64 and 0 < CS.GENESIS_FORGED_AT < CS.GENESIS_DEPOSITS
+    assert CS.GENESIS_DEPOSITS == 64 and 0 < CS.GENESIS_FORGED_AT < CS.GENESIS_SMALL
+    assert CS.GENESIS_SMALL < CS.GENESIS_DEPOSITS
     assert CS.EF_KINDS == ("verify", "fast_aggregate_verify", "aggregate_verify",
                            "batch_verify")
     assert CS.FINALITY_VALIDATORS == 64 and CS.FINALITY_MAX_EPOCHS == 5
@@ -1079,7 +1137,7 @@ def test_merge_phase_runs_last_on_the_registry():
     from lighthouse_tpu_torch import types as T
     from lighthouse_tpu_torch.ssz import cached_root
 
-    assert CS.ALL_PHASES[-3] == "merge" and "merge " in CS.__doc__
+    assert CS.ALL_PHASES[-4] == "merge" and "merge " in CS.__doc__
     assert CS.MERGE_BLOCKS == 3 and CS.MERGE_VALIDATORS == 64
     C = CS.consensus_modules()
     engine = X.MockExecutionEngine(T.types_for(T.MINIMAL))
@@ -1128,7 +1186,7 @@ def test_network_phase_runs_last_on_the_registry():
     """Last but for the http phase, over the registry the block, chain and
     merge phases share; its wire part takes the finality phase's chain when
     that phase ran."""
-    assert CS.ALL_PHASES[-2] == "network" and "network " in CS.__doc__
+    assert CS.ALL_PHASES[-3] == "network" and "network " in CS.__doc__
     assert "network" in CS.REGISTRY_PHASES and "merge" in CS.REGISTRY_PHASES
     assert CS.ALL_PHASES.index("finality") < CS.ALL_PHASES.index("network")
     assert CS.NETWORK_ATTESTATIONS == 64 and CS.CHAIN_SEGMENT == 4
@@ -1200,14 +1258,18 @@ def test_network_heads_are_held_to_the_twin(minimal_import):
     with pytest.raises(CS.Fail, match="the heads or checkpoints of \\['c'\\] differ"):
         CS.network_twin(C, genesis, preset, spec, segment[:2], nodes, "t")
     # the registry twin keeps its view after each block: the MAINNET part's
-    # nodes are held to it at their heads
-    from types import SimpleNamespace
-
-    reg = SimpleNamespace(genesis=genesis, preset=preset, spec=spec, imported=[], twin=None)
-    CS.twin_import(C, reg, segment[:3])
-    assert [reg.views[n.chain.head_root] == CS.chain_view(C, n.chain) for n in nodes] == [
-        True, True, True]
-    assert reg.views[segment[1].message.tree_hash_root()] != CS.chain_view(C, nodes[2].chain)
+    # nodes are held to it at their heads, and fail where it has no block
+    twin = CS.Twin(_ssz(genesis), preset, spec)
+    twin.import_(segment[:3])
+    for n in nodes:
+        twin.expect(f"t: {n.peer_id}", n.chain, C)
+    twin.check()
+    assert twin.views[segment[1].message.tree_hash_root()] != CS.chain_view(C, nodes[2].chain)
+    short = CS.Twin(_ssz(genesis), preset, spec)
+    short.import_(segment[:2])
+    short.expect("t: c", nodes[2].chain, C)
+    with pytest.raises(CS.Fail, match="t: c: the twin imported no block"):
+        short.check()
 
 
 def test_network_double_vote_is_refused_by_the_honest_store(minimal_import):
@@ -1259,9 +1321,10 @@ def test_timed_attrs_label_and_restore():
 
 
 def test_http_phase_runs_last_on_the_registry():
-    """Last, over the registry (block 31 and its bucket from the block
-    phase); its MINIMAL validator client stays at 16 distinct keys."""
-    assert CS.ALL_PHASES[-1] == "http" and "http " in CS.__doc__
+    """The last phase over the registry (block 31 and its bucket from the
+    block phase; only the scenario phase, which needs no registry, follows
+    it); its MINIMAL validator client stays at 16 distinct keys."""
+    assert CS.ALL_PHASES[-2] == "http" and "http " in CS.__doc__
     assert "http" in CS.REGISTRY_PHASES
     assert CS.ALL_PHASES.index("network") < CS.ALL_PHASES.index("http")
     assert CS.VC_VALIDATORS == 16 and CS.HTTP_SYNC_MESSAGES >= 1
@@ -1325,3 +1388,54 @@ def test_http_helpers_over_a_server(minimal_import, backend):
         server.stop()
     with pytest.raises(urllib.error.URLError):
         urllib.request.urlopen(f"http://127.0.0.1:{CS.closed_port()}/", timeout=5)
+
+
+# --- the scenario phase's host side ----------------------------------------------
+
+
+def test_scenario_phase_runs_last_without_the_registry():
+    """Last, needing no registry: tests/test_scenarios.py's small partition
+    plan, the corpus in the checkout, and the pairing probe families of
+    aggregation_soundness_plan, each a family the adversary batches."""
+    from lighthouse_tpu_torch.crypto.bls import adversary as A
+    from lighthouse_tpu_torch.harness import scenario as S
+    from lighthouse_tpu_torch.types import MINIMAL
+
+    assert CS.ALL_PHASES[-1] == "scenario" and "scenario " in CS.__doc__
+    assert "scenario" not in CS.REGISTRY_PHASES
+    plan = CS.scenario_plan(S, MINIMAL)
+    assert (plan.node_count, plan.validator_count, plan.seed) == (3, 48, 0)
+    assert [p.slots for p in plan.phases] == [8, 8, 16] and plan.phases[2].heal
+    assert plan.phases[1].partition == ((0,), (1, 2))
+    assert len(glob.glob(os.path.join(CS.CORPUS_DIR, "*.json"))) >= 2
+    probes = S.aggregation_soundness_plan().aggregation_probes
+    assert set(CS.SCENARIO_PROBE_FAMILIES) == set(A.BATCHES) == set(probes) - {
+        "speculation-poisoning"}
+
+
+def test_prevalidated_pubkeys_feed_the_pubkey_cache(monkeypatch):
+    """prevalidate_pubkeys checks each distinct key once through
+    PublicKey.from_bytes and leaves it in the cache's memo, so a chain's
+    pubkey cache built after it decompresses nothing; its keys are the
+    ones the cache would have made, subgroup-checked."""
+    from lighthouse_tpu_torch import types as T
+    from lighthouse_tpu_torch.chain import pubkey_cache as PC
+
+    C = CS.consensus_modules()
+    spec = T.ChainSpec.interop()
+    state, _ = CS.registry_state(C, T.MINIMAL, spec, 32, 8, CS.HostCrypto())
+    PC._validated.cache_clear()
+    seen = []
+    real = C.api.PublicKey.from_bytes
+    monkeypatch.setattr(C.api.PublicKey, "from_bytes", classmethod(
+        lambda cls, data: seen.append(bytes(data)) or real(data)))
+    assert CS.prevalidate_pubkeys(C, CS.HostCrypto(), state) == 8
+    assert len(seen) == 8 and PC._validated.cache_info().currsize == 8
+    cache = PC.ValidatorPubkeyCache(state, device="cpu")
+    assert len(seen) == 8 and len(cache) == 32
+    for i in range(32):
+        key = cache.get(i)
+        assert key.to_bytes() == bytes(state.validators[i].pubkey)
+        assert key.point == real(bytes(state.validators[i].pubkey)).point
+        assert key.subgroup_ok()
+    PC._validated.cache_clear()

@@ -86,18 +86,13 @@ CONSUMERS = {
         "serving/cache.py", "serving/sse.py", "serving/tier.py", "http_api/api.py",
         "http_api/server.py", "http_api/client.py", "crypto/keystore.py",
         "validator_client/signing_method.py", "validator_client/keymanager.py",
-        "validator_client/services.py",
+        "validator_client/services.py", "harness/scenario.py", "harness/fuzz.py",
     )
 }
 
 # names a JAX package __init__ exports that the port's does not yet, and
 # the ROADMAP item that brings each
-WAITING = {
-    "harness/__init__.py": dict.fromkeys((
-        "PLANS", "InvariantViolation", "Phase", "ScenarioPlan", "SLO",
-        "assert_bit_identical_replay", "run_scenario"),
-        "harness/scenario.py (ROADMAP Queue 1 item 14.8, step 5)"),
-}
+WAITING = {}
 INITS = ("ssz/__init__.py", "types/__init__.py", "state_transition/__init__.py",
          "chain/__init__.py", "pool/__init__.py", "processor/__init__.py",
          "fork_choice/__init__.py", "store/__init__.py",

@@ -44,7 +44,7 @@ SCHED_COUNTERS = ("BLS_SCHED_MERGES", "BLS_SCHED_LAUNCHES",
 @pytest.fixture(autouse=True)
 def _fresh(monkeypatch):
     monkeypatch.setenv("LIGHTHOUSE_TPU_CONT_BATCH", "1")
-    # restored at teardown; _run sets it for the JAX scheduler
+    # restored at teardown; _run sets it for both schedulers
     monkeypatch.setenv("LIGHTHOUSE_TPU_CONT_BATCH_MAX_SETS", "64")
     saved = (japi._BACKEND, japi._BACKEND_NAME,
              tapi._BACKEND, tapi._BACKEND_NAME, tapi._DEVICE,
@@ -71,9 +71,8 @@ def _run(pkg, backend, script, resolve, max_sets=64):
     """Submit `script` ([(lane, sets, seed, slot)]) to a fresh scheduler
     over a fresh depth-2 pipeline on `backend`, launching at `max_sets`
     queued real sets, then resolve the futures in `resolve` order and
-    drain; the scheduler's observable record. The JAX scheduler reads
-    its threshold from LIGHTHOUSE_TPU_CONT_BATCH_MAX_SETS, the port's
-    takes it as a constructor argument."""
+    drain; the scheduler's observable record. Both schedulers read their
+    threshold from LIGHTHOUSE_TPU_CONT_BATCH_MAX_SETS at each submit."""
     api, P, S, M, T, L, EventLog = PKG[pkg]
     api.set_backend(backend)
     T.configure()
@@ -81,10 +80,9 @@ def _run(pkg, backend, script, resolve, max_sets=64):
     events = EventLog()
     clock = ManualSlotClock(genesis_time=0, seconds_per_slot=12)
     clock.set_slot(5)
-    kwargs = {"max_sets": max_sets} if pkg == "torch" else {}
     os.environ["LIGHTHOUSE_TPU_CONT_BATCH_MAX_SETS"] = str(max_sets)
     sched = S.configure(pipeline=P.VerifyPipeline(depth=2, events=events),
-                        slot_clock=clock, **kwargs)
+                        slot_clock=clock)
     before = {n: getattr(M, n).value for n in SCHED_COUNTERS}
     delays = {lane: M.SCHEDULER_VERDICT_DELAY[lane].snapshot()
               for lane in S.LANES}

@@ -212,3 +212,36 @@ def jax_keys_decompressed(monkeypatch):
 
     monkeypatch.setattr(japi.PublicKey, "from_bytes", classmethod(from_bytes))
     monkeypatch.setattr(JSS, "PublicKey", japi.PublicKey)
+
+
+def scenario_sandbox(monkeypatch):
+    """Run scenarios in this test and leave the process as it found it:
+    both packages' backend (name and, in the port, device), tracer,
+    ledger, verify pipeline and scheduler are put back at teardown, and
+    the four histograms the health block reads start fresh in both
+    packages (earlier tests in the worker feed them differently)."""
+    from lighthouse_tpu.crypto.bls import api as japi
+    from lighthouse_tpu.crypto.bls import pipeline as JP
+    from lighthouse_tpu.crypto.bls import scheduler as JSCH
+    from lighthouse_tpu.obs import ledger as JL
+    from lighthouse_tpu.utils import metrics as JM
+    from lighthouse_tpu.utils import tracing as JT
+    from lighthouse_tpu_torch.crypto.bls import api as tapi
+    from lighthouse_tpu_torch.crypto.bls import pipeline as TP
+    from lighthouse_tpu_torch.crypto.bls import scheduler as TSCH
+    from lighthouse_tpu_torch.obs import ledger as TL
+    from lighthouse_tpu_torch.utils import metrics as TM
+    from lighthouse_tpu_torch.utils import monitoring as TMON
+    from lighthouse_tpu_torch.utils import tracing as TT
+
+    for mod in (JP, JSCH, JL, JT, TP, TSCH, TL, TT):
+        monkeypatch.setattr(mod, "_DEFAULT", mod._DEFAULT)
+    for name in ("_BACKEND", "_BACKEND_NAME"):
+        monkeypatch.setattr(japi, name, getattr(japi, name))
+        monkeypatch.setattr(tapi, name, getattr(tapi, name))
+    monkeypatch.setattr(tapi, "_DEVICE", tapi._DEVICE)
+    for M in (JM, TM):
+        for _, name in TMON.HEALTH_HISTOGRAMS:
+            old = getattr(M, name)
+            monkeypatch.setattr(M, name, M.Histogram(old.name, old.help,
+                                                     buckets=old.buckets))
